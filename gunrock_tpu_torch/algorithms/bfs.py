@@ -1,0 +1,291 @@
+"""Breadth-first search: hop distances (+ predecessors) from a source.
+
+Port of ``gunrock_tpu/algorithms/bfs.py``. The main path is
+direction-optimizing BFS (:func:`bfs_kernel_do`): per level it takes the
+push step (:func:`bfs_push_step`, a CUDA kernel) for small frontiers and
+the frontier-sparse semiring pull (``ops/kernels/semiring.py``) over the
+unit pull layout otherwise. :func:`msbfs_kernel` runs K searches at once
+through the bucketed SpMM. :func:`bfs_kernel` is the plain-tensor
+level-synchronous search that ``Options()`` (FORWARD) selects.
+
+The JAX package runs each search as one compiled ``while_loop``; here the
+loop is Python, and each level reads one two-element tensor back to the
+host (the frontier's out-edge sum and size), which both picks push or
+pull and ends the loop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from gunrock_tpu_torch.device import DEFAULT
+from gunrock_tpu_torch.graph import Graph
+from gunrock_tpu_torch.ops.configs import (
+    AdvanceDirection,
+    LoadBalance,
+    Options,
+    default_options,
+)
+from gunrock_tpu_torch.ops.kernels import _build
+from gunrock_tpu_torch.ops.kernels.layout import build_auto_layout, pull_layout
+from gunrock_tpu_torch.ops.kernels.semiring import bucketed_semiring_spmv_sparse
+from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
+from gunrock_tpu_torch.utils.limits import UNREACHED
+from gunrock_tpu_torch.utils.timer import Timer
+
+_BLOCKS_PER_SM = 8
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "gr_bfs_push_step": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P],
+}
+
+
+@dataclasses.dataclass
+class Result:
+    distances: torch.Tensor  # int32[V]; UNREACHED (int32 max) if unreachable
+    predecessors: torch.Tensor  # int32[V]; -1 if unreachable / source
+    search_depth: int
+    elapsed_ms: float
+
+
+def bfs_step(graph: Graph, frontier, distances, predecessors, iteration):
+    """One level-synchronous expansion in plain tensor ops: the new frontier
+    is the unvisited vertices with an in-neighbour in the frontier, found
+    by a cumsum difference over the CSC order."""
+    active = frontier[graph.csc_rows]
+    ce = torch.cat([
+        torch.zeros(1, dtype=torch.int64, device=active.device),
+        torch.cumsum(active, dim=0),
+    ])
+    offs = graph.csc_offsets.long()
+    reached = (ce[offs[1:]] - ce[offs[:-1]]) > 0
+    new = reached & (distances == UNREACHED)
+    distances = torch.where(new, iteration + 1, distances)
+    if predecessors is not None:
+        cand = torch.full_like(distances, UNREACHED).scatter_reduce_(
+            0, graph.csc_dst.long(),
+            torch.where(active, graph.csc_rows, UNREACHED), "amin")
+        predecessors = torch.where(new, cand, predecessors)
+    return new, distances, predecessors
+
+
+def bfs_push_step(graph: Graph, front_mask, distances, iteration,
+                  edge_budget: int):
+    """Sparse push expansion: every unreached out-neighbour of the frontier
+    gets ``iteration + 1``. Returns (new_mask, distances); ``distances`` is
+    updated IN PLACE (the search loop owns it). ``edge_budget`` is the
+    reference's fixed expansion size; the kernel expands exactly the
+    frontier's out-edges, so it only keeps the signature.
+
+    CUDA source: ``csrc/bfs_push.cu``."""
+    del edge_budget
+    dev = graph.device
+    V = graph.n_vertices
+    _build.check_tensor(front_mask, "front_mask", torch.bool, (V,), dev)
+    _build.check_tensor(distances, "distances", torch.int32, (V,), dev)
+    if dev.type == "cpu":
+        return bfs_push_step_plain(graph, front_mask, distances, iteration)
+    if dev.type != "cuda":
+        raise ValueError(f"no push kernel for device {dev}")
+    new_mask = torch.empty(V, dtype=torch.bool, device=dev)
+    scratch = torch.empty(V + 1, dtype=torch.int32, device=dev)
+    lib = _build.load("bfs_push", _SIGNATURES)
+    err = lib.gr_bfs_push_step(
+        _build.ptr(front_mask), V, _build.ptr(graph.row_offsets),
+        _build.ptr(graph.col_indices), _build.ptr(distances),
+        _build.ptr(new_mask), int(iteration) + 1, _build.ptr(scratch),
+        _BLOCKS_PER_SM * _build.sm_count(dev), _build.stream(dev),
+    )
+    _build.check(err, "bfs_push_step")
+    _build.LAUNCHES["bfs_push_step"] += 1
+    return new_mask, distances
+
+
+def bfs_push_step_plain(graph: Graph, front_mask, distances, iteration):
+    """Plain PyTorch version of :func:`bfs_push_step` (same in-place
+    update of ``distances``)."""
+    q = torch.nonzero(front_mask).flatten()
+    starts = graph.row_offsets[q].long()
+    degs = graph.row_offsets[q + 1].long() - starts
+    first = torch.cumsum(degs, 0) - degs  # queue item -> first slot
+    slot = torch.arange(int(degs.sum()), device=q.device)
+    e = torch.repeat_interleave(starts - first, degs) + slot
+    nbr = graph.col_indices[e].long()
+    tgt = nbr[distances[nbr] == UNREACHED]
+    distances[tgt] = int(iteration) + 1
+    new_mask = torch.zeros_like(front_mask)
+    new_mask[tgt] = True
+    return new_mask, distances
+
+
+def _pull(layout, front, dist, it):
+    """Frontier-sparse plus_times pull: with a 0/1 frontier, a vertex is
+    reached iff its count is > 0. Chunks with no frontier source or no
+    unreached destination are skipped."""
+    unreached = dist == UNREACHED
+    y = bucketed_semiring_spmv_sparse(
+        layout, front.to(torch.float32), front, "plus_times",
+        out_mask=unreached, exact=True, unit=True,
+    )
+    new = (y > 0.5) & unreached
+    return new, dist.masked_fill_(new, it + 1)
+
+
+def bfs_kernel_do(
+    graph: Graph,
+    single_source: int,
+    max_iterations: int | None = None,
+    edge_budget: int | None = None,
+    layout=None,
+    layout_dense=None,
+):
+    """Direction-optimizing BFS: per level, the push step when the
+    frontier's out-edges and size are under ``edge_budget``, else the pull
+    (the frontier-sparse kernel over ``layout``, a unit pull layout, or
+    the plain cumsum pull without one). ``layout_dense``, when given, takes
+    the levels whose frontier covers half the edges. Returns
+    (distances int32[V], depth)."""
+    V, E = graph.n_vertices, graph.n_edges
+    dev = graph.device
+    max_it = V if max_iterations is None else max_iterations
+    if edge_budget is None:
+        # the push step's cost tracks its frontier, the pull's the graph:
+        # E/64 keeps push well under one pull; a hub-first order makes the
+        # masked pull cheap enough that E/512 wins (the JAX package's
+        # measured tuning, kept until the card's own is measured)
+        div = 512 if graph.properties.hub_ordered else 64
+        edge_budget = max(4096, E // div)
+    deg = graph.out_degrees()
+    dist = torch.full((V,), UNREACHED, dtype=torch.int32, device=dev)
+    dist[single_source] = 0
+    front = torch.zeros(V, dtype=torch.bool, device=dev)
+    front[single_source] = True
+    it = 0
+    while it < max_it:
+        # the level's one host read: out-edge sum and size of the frontier
+        out_edges, n_front = torch.stack(
+            [torch.where(front, deg, 0).sum(), front.sum()]
+        ).tolist()
+        if n_front == 0:
+            break
+        if out_edges < edge_budget and n_front < edge_budget:
+            front, dist = bfs_push_step(graph, front, dist, it, edge_budget)
+        else:
+            lay = layout
+            if layout_dense is not None and out_edges >= E // 2:
+                lay = layout_dense
+            if lay is None:
+                front, dist, _ = bfs_step(graph, front, dist, None, it)
+            else:
+                front, dist = _pull(lay, front, dist, it)
+        it += 1
+    return dist, it
+
+
+def msbfs_kernel(graph: Graph, sources, pull_layout=None,
+                 max_iterations: int | None = None):
+    """Multi-source BFS: K searches share every SpMM pass over the unit
+    pull layout. Returns (distances int32[V, K], depth)."""
+    V = graph.n_vertices
+    dev = graph.device
+    max_it = V if max_iterations is None else max_iterations
+    if pull_layout is None:
+        h = graph.host
+        pull_layout = build_auto_layout(
+            h["col_indices"], h["edge_src"], np.ones(graph.n_edges, np.float32),
+            V, device=dev,
+        )
+    src = torch.as_tensor(sources, device=dev).long()
+    K = src.shape[0]
+    cols = torch.arange(K, device=dev)
+    dist = torch.full((V, K), UNREACHED, dtype=torch.int32, device=dev)
+    dist[src, cols] = 0
+    front = torch.zeros((V, K), dtype=torch.float32, device=dev)
+    front[src, cols] = 1.0
+    it = 0
+    while it < max_it and bool(front.any()):
+        reached = bucketed_spmm(pull_layout, front, exact=True) > 0.5
+        new = reached & (dist == UNREACHED)
+        dist.masked_fill_(new, it + 1)
+        front = new.to(torch.float32)
+        it += 1
+    return dist, it
+
+
+def bfs_kernel(graph: Graph, single_source: int,
+               max_iterations: int | None = None):
+    """Plain-tensor level-synchronous BFS. Returns (distances,
+    predecessors, depth)."""
+    V = graph.n_vertices
+    dev = graph.device
+    max_it = V if max_iterations is None else max_iterations
+    dist = torch.full((V,), UNREACHED, dtype=torch.int32, device=dev)
+    dist[single_source] = 0
+    pred = torch.full((V,), -1, dtype=torch.int32, device=dev)
+    front = torch.zeros(V, dtype=torch.bool, device=dev)
+    front[single_source] = True
+    it = 0
+    while it < max_it and bool(front.any()):
+        front, dist, pred = bfs_step(graph, front, dist, pred, it)
+        it += 1
+    return dist, pred, it
+
+
+def run(
+    graph: Graph,
+    single_source: int,
+    options: Options | None = None,
+    warmup: bool = True,
+    device=DEFAULT,
+) -> Result:
+    """Role of reference ``bfs::run``: BFS from ``single_source`` on
+    ``device`` (the graph moves there if it is elsewhere). The default
+    options take the direction-optimizing path over the bucketed kernels;
+    predecessors then come from one post-pass."""
+    graph = graph.to(device)
+    if not 0 <= int(single_source) < graph.n_vertices:
+        raise ValueError(
+            f"source {single_source} out of range [0, {graph.n_vertices})"
+        )
+    single_source = int(single_source)
+    if options is None:
+        options = default_options()
+    if options.advance_direction == AdvanceDirection.OPTIMIZED:
+        layout = None
+        if options.load_balance == LoadBalance.PALLAS_MERGE_PATH:
+            layout = pull_layout(graph, unit=True)
+
+        def search():
+            dist, depth = bfs_kernel_do(graph, single_source, layout=layout)
+            return dist, None, depth
+    else:
+
+        def search():
+            return bfs_kernel(graph, single_source)
+
+    if warmup:
+        search()
+    timer = Timer(graph.device)
+    timer.begin()
+    dist, pred, depth = search()
+    elapsed_ms = timer.end()
+    if pred is None:
+        pred = _predecessors_from_distances(graph, dist)
+    return Result(distances=dist, predecessors=pred, search_depth=depth,
+                  elapsed_ms=elapsed_ms)
+
+
+def _predecessors_from_distances(graph: Graph, distances):
+    """pred[v] = min in-neighbour u with dist[u] == dist[v] - 1."""
+    src = graph.csc_rows
+    d_src = distances[src]
+    ok = (d_src != UNREACHED) & (d_src + 1 == distances[graph.csc_dst])
+    pred = torch.full_like(distances, UNREACHED).scatter_reduce_(
+        0, graph.csc_dst.long(), torch.where(ok, src, UNREACHED), "amin")
+    return torch.where(
+        (pred == UNREACHED) | (distances == UNREACHED), -1, pred
+    ).to(torch.int32)

@@ -1,0 +1,2 @@
+from gunrock_tpu_torch.io.generators import grid2d_graph, rmat_graph  # noqa: F401
+from gunrock_tpu_torch.io.loader import load_graph_file  # noqa: F401

@@ -1,0 +1,104 @@
+"""CLI parameter system for the examples (the part of
+``gunrock_tpu/io/parameters.py`` the port's BFS CLI uses, plus
+``--device``)."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+import numpy as np
+
+from gunrock_tpu_torch.device import DEFAULT
+from gunrock_tpu_torch.ops.configs import (
+    AdvanceDirection,
+    LoadBalance,
+    Options,
+    default_options,
+)
+
+
+@dataclasses.dataclass
+class Parameters:
+    filename: str
+    sources: str
+    num_runs: int
+    validate: bool
+    options: Options
+    device: str
+    reorder: str
+    # set by examples.runner.load under --reorder degree
+    # (graph/reorder.py Reordering)
+    reordering: object = None
+
+
+def build_parser(algorithm: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog=f"gunrock_tpu_torch {algorithm}",
+        description=f"{algorithm} example (PyTorch/CUDA port)",
+    )
+    p.add_argument("-m", "--market", required=True,
+                   help="Matrix file (.mtx/.csr)")
+    p.add_argument("--device", default=DEFAULT,
+                   help="torch device to run on (default: cuda; fails "
+                   "without a card rather than falling back to the CPU)")
+    p.add_argument("--advance_load_balance", default="default",
+                   help="advance strategy (thread_mapped, block_mapped, "
+                   "merge_path, xla_segment, pallas_merge_path; 'default' "
+                   "picks the bucketed kernels)")
+    p.add_argument("--advance_direction", default="default",
+                   help="advance direction (forward, optimized; 'default' "
+                   "picks optimized)")
+    p.add_argument("-n", "--num_runs", type=int, default=1)
+    p.add_argument("--reorder", default="none", choices=("none", "degree"),
+                   help="vertex relabeling before execution (degree = "
+                   "hub-first degree sort); --src ids and printed results "
+                   "stay in the input id space")
+    p.add_argument("-s", "--src", default="",
+                   help="source(s), comma-separated; random if omitted")
+    p.add_argument("--validate", action="store_true", help="CPU validation")
+    return p
+
+
+def parse_source_string(source_str: str, n_vertices: int, n_runs: int) -> list[int]:
+    """Comma-separated sources; one random source per run when empty."""
+    if not source_str:
+        rng = np.random.default_rng()
+        return [int(rng.integers(0, n_vertices)) for _ in range(n_runs)]
+    sources = []
+    for tok in source_str.split(","):
+        try:
+            s = int(tok)
+        except ValueError:
+            print("Error: Invalid source")
+            sys.exit(1)
+        if not 0 <= s < n_vertices:
+            print("Error: Invalid source")
+            sys.exit(1)
+        sources.append(s)
+    if len(sources) == 1:
+        sources = sources * n_runs
+    return sources
+
+
+def parse(algorithm: str, argv=None) -> Parameters:
+    ns = build_parser(algorithm).parse_args(argv)
+    auto = default_options()
+    options = Options(
+        load_balance=auto.load_balance
+        if ns.advance_load_balance == "default"
+        else LoadBalance.parse(ns.advance_load_balance),
+        advance_direction=auto.advance_direction
+        if ns.advance_direction == "default"
+        else AdvanceDirection(ns.advance_direction),
+    )
+    return Parameters(
+        filename=ns.market,
+        sources=ns.src,
+        num_runs=ns.num_runs,
+        validate=ns.validate,
+        options=options,
+        device=ns.device,
+        reorder=ns.reorder,
+    )

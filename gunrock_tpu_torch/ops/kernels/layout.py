@@ -1,0 +1,211 @@
+"""Bucketed edge layout, the data the port's kernels walk (built once on
+the host).
+
+Counterpart of ``gunrock_tpu/ops/pallas/layout.py``, with the same arrays
+built by the same numpy code, so a parity test can feed one layout to both
+packages. Edges are grouped into (row window, col window) buckets of size
+W and cut into chunks of C slots; each chunk touches one x window and one
+y window. Padding slots carry ``row_local == W``, ``col_local == 0`` and
+``pad_value``.
+
+What the port leaves out: the TPU's SMEM chunk budget, W doubling and
+paged metadata (``layout.py:194-266``), and the ``rb*65536+cb`` packing
+limit (``layout.py:95-103``). The port keeps ``chunk_rb``/``chunk_cb`` as
+two int32 tensors and always builds at W=2048/C=256.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from gunrock_tpu_torch.device import DEFAULT, resolve
+
+DATA_FIELDS = ("row_local", "col_local", "values", "chunk_rb", "chunk_cb",
+               "rb_occupied", "src_bits", "dst_bits")
+META_FIELDS = ("window", "chunk", "n_chunks", "n_row_blocks", "n_col_blocks",
+               "n_vertices")
+_DTYPES = {"row_local": np.int32, "col_local": np.int32,
+           "values": np.float32, "chunk_rb": np.int32, "chunk_cb": np.int32,
+           "rb_occupied": np.bool_}
+
+WINDOW, CHUNK = 2048, 256
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketedEdges:
+    row_local: torch.Tensor  # int32[n_chunks * chunk] — row % W (W if pad)
+    col_local: torch.Tensor  # int32[n_chunks * chunk] — col % W (0 if pad)
+    values: torch.Tensor  # float32[n_chunks * chunk] — pad_value for padding
+    chunk_rb: torch.Tensor  # int32[n_chunks] — row block of each chunk
+    chunk_cb: torch.Tensor  # int32[n_chunks] — col block of each chunk
+    rb_occupied: torch.Tensor  # bool[n_row_blocks] — touched by >= 1 chunk
+    # bit b of src_bits[ch] is set iff chunk ch has a real edge whose source
+    # lies in sub-block b (W/32 vertices) of its col window; dst_bits the
+    # same for rows. uint32 words held as int32 (same bits).
+    src_bits: torch.Tensor  # int32[n_chunks]
+    dst_bits: torch.Tensor  # int32[n_chunks]
+    window: int
+    chunk: int
+    n_chunks: int
+    n_row_blocks: int
+    n_col_blocks: int
+    n_vertices: int
+
+    @classmethod
+    def from_arrays(cls, arrays: dict, window: int, chunk: int, n_chunks: int,
+                    n_row_blocks: int, n_col_blocks: int, n_vertices: int,
+                    device=DEFAULT) -> "BucketedEdges":
+        """Layout from the eight named numpy arrays (``DATA_FIELDS``) and
+        the six meta fields. Bit words may come as uint32 or int32."""
+        dev = resolve(device)
+        tensors = {}
+        for name in DATA_FIELDS:
+            a = np.asarray(arrays[name])  # astype below copies: writable
+            if name in ("src_bits", "dst_bits"):
+                a = a.astype(np.uint32).view(np.int32)
+            else:
+                a = a.astype(_DTYPES[name])
+            tensors[name] = torch.from_numpy(a).to(dev)
+        return cls(**tensors, window=int(window), chunk=int(chunk),
+                   n_chunks=int(n_chunks), n_row_blocks=int(n_row_blocks),
+                   n_col_blocks=int(n_col_blocks), n_vertices=int(n_vertices))
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_local.device
+
+
+def _pack_subblock_bits(chunk_ids, local, window: int, n_chunks: int):
+    """uint32[n_chunks]: bit b set iff some edge of the chunk has its
+    window-local index in sub-block b (sub-block = window/32 vertices)."""
+    if window < 32 or window % 32:
+        raise ValueError(
+            f"sub-block bit packing needs window to be a multiple of 32 "
+            f"and >= 32, got {window}"
+        )
+    sub = window // 32
+    pair = chunk_ids.astype(np.int64) * 32 + local.astype(np.int64) // sub
+    occ = np.bincount(pair, minlength=n_chunks * 32).reshape(n_chunks, 32) > 0
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    return (occ * weights).sum(axis=1).astype(np.uint32)
+
+
+def build_bucketed_layout(rows, cols, values, n_vertices: int,
+                          window: int = 512, chunk: int = 1024,
+                          pad_value: float = 0.0,
+                          device=DEFAULT) -> BucketedEdges:
+    """Bucket (row, col, value) edges into the chunked window layout on
+    ``device``, building it with numpy on the host. ``pad_value`` fills
+    padding slots' values."""
+    device = resolve(device)
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    values = np.asarray(values, dtype=np.float32)
+    n_rb = -(-n_vertices // window)
+    n_cb = -(-n_vertices // window)
+    rb = rows // window
+    cb = cols // window
+    order = np.lexsort((cb, rb))  # sort edges by (rb, cb); stable
+    rows, cols, values, rb, cb = (
+        rows[order], cols[order], values[order], rb[order], cb[order]
+    )
+    bucket = rb * n_cb + cb
+    # edge j with within-bucket rank r goes to slot
+    # (chunk_offset[bucket] + r // chunk) * chunk + r % chunk
+    uniq, inverse, counts = np.unique(bucket, return_inverse=True,
+                                      return_counts=True)
+    starts = np.zeros_like(counts)
+    np.cumsum(counts[:-1], out=starts[1:])
+    rank = np.arange(rows.size, dtype=np.int64) - starts[inverse]
+    chunks_per_bucket = -(-counts // chunk)
+    chunk_off = np.zeros_like(chunks_per_bucket)
+    np.cumsum(chunks_per_bucket[:-1], out=chunk_off[1:])
+    n_chunks = int(chunks_per_bucket.sum())
+    dest = (chunk_off[inverse] + rank // chunk) * chunk + rank % chunk
+    E_out = n_chunks * chunk
+    row_local = np.full(E_out, window, dtype=np.int32)  # padding sentinel
+    col_local = np.zeros(E_out, dtype=np.int32)
+    vals_out = np.full(E_out, pad_value, dtype=np.float32)
+    row_local[dest] = (rows - rb * window).astype(np.int32)
+    col_local[dest] = (cols - cb * window).astype(np.int32)
+    vals_out[dest] = values
+    rb_occupied = np.zeros(n_rb, dtype=bool)
+    rb_occupied[(uniq // n_cb).astype(np.int64)] = True
+    data = {
+        "row_local": row_local,
+        "col_local": col_local,
+        "values": vals_out,
+        "chunk_rb": np.repeat((uniq // n_cb).astype(np.int32), chunks_per_bucket),
+        "chunk_cb": np.repeat((uniq % n_cb).astype(np.int32), chunks_per_bucket),
+        "rb_occupied": rb_occupied,
+        "src_bits": _pack_subblock_bits(dest // chunk, cols - cb * window,
+                                        window, n_chunks),
+        "dst_bits": _pack_subblock_bits(dest // chunk, rows - rb * window,
+                                        window, n_chunks),
+    }
+    return BucketedEdges.from_arrays(
+        data, window=window, chunk=chunk, n_chunks=n_chunks,
+        n_row_blocks=n_rb, n_col_blocks=n_cb, n_vertices=n_vertices,
+        device=device)
+
+
+def build_auto_layout(rows, cols, values, n_vertices: int,
+                      pad_value: float = 0.0,
+                      device=DEFAULT) -> BucketedEdges:
+    """The layout at W=2048/C=256. (The JAX package grows W past the TPU's
+    scalar-memory chunk budget; the port has no such budget.)"""
+    return build_bucketed_layout(rows, cols, values, n_vertices,
+                                 window=WINDOW, chunk=CHUNK,
+                                 pad_value=pad_value, device=device)
+
+
+def slot_indices(layout: BucketedEdges, ch_act: torch.Tensor | None = None):
+    """(row, col, slot): global row and column and the slot index of every
+    real (non-padding) slot, of the chunks in ``ch_act`` (all chunks when
+    None). The plain kernel versions walk the layout through these."""
+    W, C = layout.window, layout.chunk
+    slot_chunk = torch.arange(layout.n_chunks * C, device=layout.device) // C
+    real = layout.row_local != W
+    if ch_act is not None:
+        real &= ch_act[slot_chunk]
+    slot = torch.nonzero(real).flatten()
+    ch = slot_chunk[slot]
+    row = layout.chunk_rb[ch].long() * W + layout.row_local[slot]
+    col = layout.chunk_cb[ch].long() * W + layout.col_local[slot]
+    return row, col, slot
+
+
+def _graph_layout(graph, kind: str, window, chunk, pad_value, unit):
+    key = (kind, window, chunk, pad_value, unit)
+    if key not in graph.layouts:
+        h = graph.host
+        # push: rows = sources, cols = destinations; pull: the transpose
+        rows, cols = h["edge_src"], h["col_indices"]
+        if kind == "pull":
+            rows, cols = cols, rows
+        vals = np.ones(graph.n_edges, np.float32) if unit else h["values"]
+        graph.layouts[key] = build_bucketed_layout(
+            rows, cols, vals, graph.n_vertices,
+            window=WINDOW if window is None else window,
+            chunk=CHUNK if chunk is None else chunk,
+            pad_value=pad_value, device=graph.device,
+        )
+    return graph.layouts[key]
+
+
+def push_layout(graph, window: int | None = None, chunk: int | None = None,
+                pad_value: float = 0.0, unit: bool = False) -> BucketedEdges:
+    """Layout of the CSR edge set (rows=src, cols=dst): push advance,
+    y[src] = reduce over out-edges of f(x[dst], w). Cached on the graph."""
+    return _graph_layout(graph, "push", window, chunk, pad_value, unit)
+
+
+def pull_layout(graph, window: int | None = None, chunk: int | None = None,
+                pad_value: float = 0.0, unit: bool = False) -> BucketedEdges:
+    """Layout of the transposed edge set (rows=dst, cols=src): pull
+    advance, y[dst] = reduce over in-edges of f(x[src], w). ``unit=True``
+    sets every weight to 1.0 (BFS reachability). Cached on the graph."""
+    return _graph_layout(graph, "pull", window, chunk, pad_value, unit)

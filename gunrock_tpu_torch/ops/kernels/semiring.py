@@ -1,0 +1,128 @@
+"""Frontier-sparse semiring pull over the bucketed layout.
+
+Port of ``gunrock_tpu/ops/pallas/semiring.py::bucketed_semiring_spmv_sparse``
+(kernel ``_make_sparse_kernel``). For every slot of every ACTIVE chunk
+(``chunkplan.chunk_activity``), y[row] (+)= msg(x[col], value):
+
+- ``plus_times``  y[r] = sum  val * x[c]         identity 0
+- ``max_times``   y[r] = max  val * x[c]         identity 0
+- ``min_plus``    y[r] = min (val + x[c])        identity _BIG; results
+  >= _BIG come back as inf
+
+An active chunk reduces all of its slots, including those whose source is
+inactive: the contract assumes inactive x already holds the gather
+identity. Rows that no active chunk reaches come back as the identity.
+``unit=True`` skips the values: msg = x for plus/max, min(x, _BIG) for
+min_plus (the (x)-identity, not weight 1). ``exact`` is accepted for the
+callers and changes nothing: the port computes in f32 throughout.
+
+CUDA source: ``csrc/semiring.cu``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gunrock_tpu_torch.ops.kernels import _build
+from gunrock_tpu_torch.ops.kernels.chunkplan import chunk_activity, chunk_activity_plain
+from gunrock_tpu_torch.ops.kernels.layout import BucketedEdges, slot_indices
+
+_BIG = 3.0e38  # f32-safe infinity stand-in (keeps arithmetic finite)
+
+SEMIRINGS = {
+    # name: (kernel id, identity, scatter_reduce op)
+    "plus_times": (0, 0.0, "sum"),
+    "min_plus": (1, _BIG, "amin"),
+    "max_times": (2, 0.0, "amax"),
+}
+_BLOCKS_PER_SM = 8
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "gr_spmv_sparse": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _P],
+}
+
+
+def _finish(y: torch.Tensor, V: int, semiring: str) -> torch.Tensor:
+    y = y[:V]
+    if semiring == "min_plus":
+        y = torch.where(y >= _BIG, torch.inf, y)
+    return y
+
+
+def bucketed_semiring_spmv_sparse(
+    layout: BucketedEdges,
+    x: torch.Tensor,
+    active: torch.Tensor,
+    semiring: str = "plus_times",
+    out_mask: torch.Tensor | None = None,
+    exact: bool = False,
+    unit: bool = False,
+) -> torch.Tensor:
+    """f32[V]: the semiring pull over the chunks ``active`` (and
+    ``out_mask``) select. See the module docstring for the contract."""
+    del exact  # f32 throughout covers the bf16-exact mode
+    sr_id, ident, _ = SEMIRINGS[semiring]
+    dev = layout.device
+    V = layout.n_vertices
+    _build.check_tensor(x, "x", torch.float32, (V,), dev)
+    _build.check_tensor(active, "active", torch.bool, (V,), dev)
+    if out_mask is not None:
+        _build.check_tensor(out_mask, "out_mask", torch.bool, (V,), dev)
+    if layout.n_chunks == 0:
+        fill = torch.inf if semiring == "min_plus" else ident
+        return torch.full((V,), fill, dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        return bucketed_semiring_spmv_sparse_plain(
+            layout, x, active, semiring, out_mask, unit=unit)
+    if dev.type != "cuda":
+        raise ValueError(f"no semiring kernel for device {dev}")
+    _, queue, count = chunk_activity(layout, active, out_mask)
+    W = layout.window
+    y = torch.full((layout.n_row_blocks * W,), ident, dtype=torch.float32,
+                   device=dev)
+    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
+    lib = _build.load("semiring", _SIGNATURES)
+    err = lib.gr_spmv_sparse(
+        sr_id, int(unit), blocks, _build.ptr(queue), _build.ptr(count),
+        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
+        _build.ptr(layout.row_local), _build.ptr(layout.col_local),
+        None if unit else _build.ptr(layout.values), _build.ptr(x),
+        _build.ptr(y), W, layout.chunk, _build.stream(dev),
+    )
+    _build.check(err, "bucketed_semiring_spmv_sparse")
+    _build.LAUNCHES["bucketed_semiring_spmv_sparse"] += 1
+    return _finish(y, V, semiring)
+
+
+def bucketed_semiring_spmv_sparse_plain(
+    layout: BucketedEdges,
+    x: torch.Tensor,
+    active: torch.Tensor,
+    semiring: str = "plus_times",
+    out_mask: torch.Tensor | None = None,
+    exact: bool = False,
+    unit: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bucketed_semiring_spmv_sparse`."""
+    del exact
+    _, ident, reduce = SEMIRINGS[semiring]
+    V = layout.n_vertices
+    if layout.n_chunks == 0:
+        fill = torch.inf if semiring == "min_plus" else ident
+        return torch.full((V,), fill, dtype=torch.float32, device=x.device)
+    ch_act, _, _ = chunk_activity_plain(layout, active, out_mask)
+    row, col, slot = slot_indices(layout, ch_act)
+    xg = x[col]
+    if semiring == "min_plus":
+        msg = xg if unit else layout.values[slot] + xg
+        msg = torch.clamp(msg, max=_BIG)
+    else:
+        msg = xg if unit else layout.values[slot] * xg
+    y = torch.full((layout.n_row_blocks * layout.window,), ident,
+                   dtype=torch.float32, device=x.device)
+    y.scatter_reduce_(0, row, msg, reduce=reduce, include_self=True)
+    return _finish(y, V, semiring)

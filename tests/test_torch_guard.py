@@ -1,0 +1,66 @@
+"""Guards of the PyTorch port: it imports nothing of JAX or of the JAX
+package, and its entry points default to the card and raise without one
+instead of running on the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+CHESAPEAKE = str(ROOT / "datasets" / "chesapeake.mtx")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import gunrock_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gunrock_tpu_torch.__path__,
+                                              "gunrock_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "gunrock_tpu"))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 20 else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _entry_points():
+    """Each entry point called with its default device."""
+    import numpy as np
+
+    from gunrock_tpu_torch import interop
+    from gunrock_tpu_torch.algorithms import bfs
+    from gunrock_tpu_torch.examples import bfs as bfs_cli
+    from gunrock_tpu_torch.formats import Coo
+    from gunrock_tpu_torch.graph import build_graph
+    from gunrock_tpu_torch.io import load_graph_file, rmat_graph
+
+    def cpu_graph():
+        return load_graph_file(CHESAPEAKE, device="cpu")[0]
+
+    one = np.ones(1, np.int32)
+    return {
+        "build_graph": lambda: build_graph(Coo(2, 2, 0 * one, one, one * 1.0)),
+        "load_graph_file": lambda: load_graph_file(CHESAPEAKE),
+        "rmat_graph": lambda: rmat_graph(4),
+        "bfs.run": lambda: bfs.run(cpu_graph(), 0),
+        "interop.bfs": lambda: interop.bfs(cpu_graph(), 0),
+        "cli": lambda: bfs_cli.main(["--market", CHESAPEAKE, "--src", "0"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["build_graph", "load_graph_file", "rmat_graph",
+                                  "bfs.run", "interop.bfs", "cli"])
+def test_entry_point_default_device_needs_a_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _entry_points()[name]()

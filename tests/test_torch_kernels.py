@@ -1,0 +1,211 @@
+"""The port's kernels (their plain versions, which the CPU runs) against
+the JAX package's Pallas kernels in interpret mode, on one layout built by
+the JAX package and carried across with ``BucketedEdges.from_arrays``.
+
+Tolerances: the layout, the chunk plan and the max/min semirings are
+compared exactly (same chunks, order-free reductions, identical f32
+message arithmetic). plus_times uses rtol 1e-4: the JAX kernel rebuilds
+f32 from a bf16 hi+lo split (semiring.py:321-324, spmm.py:27-30) and the
+port sums in another order. 0/1 inputs give exact integer counts in both.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gunrock_tpu.io.generators import rmat_graph as j_rmat_graph
+from gunrock_tpu.ops.pallas import semiring as jsemiring
+from gunrock_tpu.ops.pallas.layout import build_bucketed_layout as j_build_layout
+from gunrock_tpu.ops.pallas.semiring import _BIG, _sparse_chunk_select
+from gunrock_tpu.ops.pallas.semiring import (
+    bucketed_semiring_spmv_sparse as j_spmv_sparse,
+)
+from gunrock_tpu.ops.pallas.spmm import bucketed_spmm as j_spmm
+
+from gunrock_tpu_torch.graph import Graph, GraphProperties
+from gunrock_tpu_torch.graph.graph import ARRAYS
+from gunrock_tpu_torch.ops.kernels import layout as tlayout
+from gunrock_tpu_torch.ops.kernels.chunkplan import chunk_activity
+from gunrock_tpu_torch.ops.kernels.layout import (
+    DATA_FIELDS,
+    META_FIELDS,
+    BucketedEdges,
+    build_bucketed_layout,
+)
+from gunrock_tpu_torch.ops.kernels.semiring import bucketed_semiring_spmv_sparse
+from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
+
+# W=128 (the JAX interpret-mode window), C=128 (v5 needs C % 128 == 0);
+# V=300 is not a multiple of W, so the last window runs past V
+V, W, C = 300, 128, 128
+
+
+def random_edges(seed, n_vertices=V, n_edges=2500, negative=False):
+    rng = np.random.default_rng(seed)
+    # skewed sources and destinations: some buckets fill several chunks,
+    # most end in a partly padded chunk
+    rows = (n_vertices * rng.random(n_edges) ** 2).astype(np.int32)
+    cols = (n_vertices * rng.random(n_edges) ** 2).astype(np.int32)
+    vals = (rng.random(n_edges) + 0.1).astype(np.float32)
+    if negative:
+        vals *= rng.choice(np.float32([-1, 1]), n_edges)
+    return rows, cols, vals
+
+
+def carry(jl) -> BucketedEdges:
+    """The JAX layout as the port's, array for array."""
+    return BucketedEdges.from_arrays(
+        {k: np.asarray(getattr(jl, k)) for k in DATA_FIELDS},
+        **{k: getattr(jl, k) for k in META_FIELDS}, device="cpu",
+    )
+
+
+@pytest.mark.parametrize("n_vertices", [300, 256])
+def test_build_bucketed_layout_matches_jax(n_vertices):
+    rows, cols, vals = random_edges(1, n_vertices)
+    jl = j_build_layout(rows, cols, vals, n_vertices, window=W, chunk=C,
+                        pad_value=_BIG)
+    tl = build_bucketed_layout(rows, cols, vals, n_vertices, window=W,
+                               chunk=C, pad_value=_BIG, device="cpu")
+    for k in META_FIELDS:
+        assert getattr(tl, k) == getattr(jl, k), k
+    for k in DATA_FIELDS:
+        want = np.asarray(getattr(jl, k))
+        if k in ("src_bits", "dst_bits"):
+            want = want.astype(np.uint32).view(np.int32)  # bit 31 survives
+        np.testing.assert_array_equal(getattr(tl, k).numpy(), want, err_msg=k)
+    assert (tl.src_bits < 0).any(), "no word uses bit 31: weak test"
+    # padding slots: row sentinel W, col 0, pad_value
+    pad = tl.row_local == W
+    assert pad.any() and (tl.col_local[pad] == 0).all()
+    assert (tl.values[pad] == np.float32(_BIG)).all()
+
+
+@pytest.mark.parametrize("kind", ["pull", "push"])
+def test_graph_layouts_match_jax(kind):
+    """pull_layout / push_layout of a graph equal the JAX package's."""
+    jg = j_rmat_graph(scale=8, seed=3)
+    tg = Graph.from_arrays(
+        {k: np.asarray(getattr(jg, k)) for k in ARRAYS}, jg.n_vertices,
+        GraphProperties(**dataclasses.asdict(jg.properties)), device="cpu")
+    jl = getattr(jsemiring, f"{kind}_layout")(jg, window=W, chunk=C)
+    tl = getattr(tlayout, f"{kind}_layout")(tg, window=W, chunk=C)
+    assert getattr(tlayout, f"{kind}_layout")(tg, window=W, chunk=C) is tl
+    for k in META_FIELDS:
+        assert getattr(tl, k) == getattr(jl, k), k
+    for k in DATA_FIELDS:
+        want = np.asarray(getattr(jl, k))
+        if k in ("src_bits", "dst_bits"):
+            want = want.astype(np.uint32).view(np.int32)
+        np.testing.assert_array_equal(getattr(tl, k).numpy(), want, err_msg=k)
+
+
+def frontier(seed, p=0.3):
+    rng = np.random.default_rng(seed)
+    return rng.random(V) < p
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_chunk_activity_matches_jax(masked):
+    rows, cols, vals = random_edges(2)
+    jl = j_build_layout(rows, cols, vals, V, window=W, chunk=C)
+    tl = carry(jl)
+    active = frontier(3, 0.05)
+    out_mask = frontier(4, 0.5) if masked else None
+    want, _, _, count = _sparse_chunk_select(
+        jl, jnp.asarray(active), None if out_mask is None else jnp.asarray(out_mask))
+    ch_act, queue, n = chunk_activity(
+        tl, torch.from_numpy(active),
+        None if out_mask is None else torch.from_numpy(out_mask))
+    np.testing.assert_array_equal(ch_act.numpy(), np.asarray(want))
+    assert 0 < int(n[0]) == int(count) < tl.n_chunks
+    np.testing.assert_array_equal(queue[: int(n[0])].numpy(),
+                                  np.flatnonzero(np.asarray(want)))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("semiring", ["plus_times", "max_times", "min_plus"])
+def test_spmv_sparse_matches_jax(semiring, unit, masked):
+    rng = np.random.default_rng(5)
+    rows, cols, vals = random_edges(6, negative=semiring != "plus_times")
+    pad = _BIG if semiring == "min_plus" else 0.0
+    jl = j_build_layout(rows, cols, vals, V, window=W, chunk=C, pad_value=pad)
+    tl = carry(jl)
+    active = frontier(7)
+    out_mask = frontier(8, 0.5) if masked else None
+    # inactive sources carry the gather identity (the kernel's contract)
+    if semiring == "min_plus":
+        x = np.where(active, rng.standard_normal(V), np.inf)
+    elif semiring == "max_times":
+        x = np.where(active, rng.standard_normal(V), 0.0)
+    else:
+        x = np.where(active, rng.random(V), 0.0)
+    x = x.astype(np.float32)
+    want = np.asarray(j_spmv_sparse(
+        jl, jnp.asarray(x), jnp.asarray(active), semiring, interpret=True,
+        out_mask=None if out_mask is None else jnp.asarray(out_mask),
+        unit=unit))
+    got = bucketed_semiring_spmv_sparse(
+        tl, torch.from_numpy(x), torch.from_numpy(active), semiring,
+        out_mask=None if out_mask is None else torch.from_numpy(out_mask),
+        unit=unit).numpy()
+    # every row, not only the out_mask rows: both run the same chunks
+    if semiring == "plus_times":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+    if semiring == "min_plus":
+        assert np.isinf(got).any() and np.isfinite(got).any()
+
+
+def test_spmv_sparse_bfs_pull_counts_exact():
+    """The BFS pull: unit plus_times on a 0/1 frontier gives exact counts."""
+    rows, cols, vals = random_edges(9)
+    jl = j_build_layout(rows, cols, np.ones_like(vals), V, window=W, chunk=C)
+    active = frontier(10, 0.1)
+    unreached = ~frontier(11, 0.4)
+    want = np.asarray(j_spmv_sparse(
+        jl, jnp.asarray(active, jnp.float32), jnp.asarray(active),
+        "plus_times", interpret=True, out_mask=jnp.asarray(unreached),
+        exact=True, unit=True))
+    got = bucketed_semiring_spmv_sparse(
+        carry(jl), torch.from_numpy(active).float(), torch.from_numpy(active),
+        "plus_times", out_mask=torch.from_numpy(unreached), exact=True,
+        unit=True).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "max_times", "min_plus"])
+def test_spmv_sparse_edgeless_layout(semiring):
+    e = np.zeros(0, np.int32)
+    jl = j_build_layout(e, e, e.astype(np.float32), 50, window=W, chunk=C)
+    x = np.ones(50, np.float32)
+    act = np.ones(50, bool)
+    want = np.asarray(j_spmv_sparse(jl, jnp.asarray(x), jnp.asarray(act),
+                                    semiring, interpret=True))
+    got = bucketed_semiring_spmv_sparse(carry(jl), torch.from_numpy(x),
+                                        torch.from_numpy(act), semiring).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == (np.inf if semiring == "min_plus" else 0.0)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_spmm_matches_jax(exact):
+    rng = np.random.default_rng(12)
+    rows, cols, vals = random_edges(13)
+    if exact:
+        vals = np.ones_like(vals)
+        x = (rng.random((V, 8)) < 0.2).astype(np.float32)
+    else:  # positive: no cancellation, so rtol bounds the hi+lo error
+        x = rng.random((V, 8)).astype(np.float32)
+    jl = j_build_layout(rows, cols, vals, V, window=W, chunk=C)
+    want = np.asarray(j_spmm(jl, jnp.asarray(x), interpret=True, exact=exact))
+    got = bucketed_spmm(carry(jl), torch.from_numpy(x), exact=exact).numpy()
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
