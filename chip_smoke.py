@@ -13,17 +13,29 @@ Phases, each raising on failure:
    W=2048/C=256 pull layout; K=32 for the SpMM), with CUDA-event times of
    the kernel, its plain version and, where one exists, one PyTorch call
    computing the same function.
-3. main path: ``bfs.run`` (direction-optimizing BFS) from the 8
-   highest-degree vertices, each checked against the CPU oracle, then
-   multi-source BFS over the 32 highest-degree vertices, each column
-   checked the same way. Launch counts are reset just before and read
-   just after; every kernel of the path must have launched.
-4. CLI: ``python -m gunrock_tpu_torch.examples.bfs --validate``.
+   The semiring family's kernels (dense pass, fused HITS pass, SSSP push
+   step) are checked the same way, also with negative values and a row
+   window no chunk reaches, at the W=2048/C=256 pull layouts and the
+   W=4096/C=1024 PageRank and HITS layouts.
+3. main paths, each with launch counts reset just before and read just
+   after; every kernel of the path must have launched:
+   a. BFS: ``bfs.run`` (direction-optimizing BFS) from the 8
+      highest-degree vertices, each checked against the CPU oracle, then
+      multi-source BFS over the 32 highest-degree vertices;
+   b. the semiring family: ``sssp.run`` from the 8 highest-degree
+      vertices and once with the dense min_plus pass, ``pr.run``,
+      ``pr.run_batch`` over four dampings, ``hits.run`` and ``spmv.run``,
+      each checked against its CPU oracle.
+4. CLIs: bfs (twice), sssp, pr, hits and spmv with ``--validate``.
 
 Output: the ``nvidia-smi`` name/power-limit line first, a bench line with
-bench.py's keys, then the kernel table as one JSON line, and last
-``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
-without a CUDA device or without the package beside it.
+bench.py's keys, a ``{"semiring_family": ...}`` line, the seconds of each
+phase, then the kernel table as one JSON line, and last ``{"ok": true,
+"device": {...}}``. Exits non-zero, printing no result, without a CUDA
+device or without the package beside it.
+
+``edge_shapes_main()`` runs only the build and the edge-shape checks, for
+``compute-sanitizer``.
 """
 
 from __future__ import annotations
@@ -84,9 +96,13 @@ def max_abs_err(torch, got, want, exact: bool, rtol: float = 1e-5,
 
 def device_profile(torch, fn) -> dict:
     """One warm call of ``fn`` under torch.profiler: wall time, the device's
-    busy time (the sum of device self times; one stream, so no overlap)
-    and its idle share, and the kernels that took the most device time.
-    The profiler adds host time, so the idle share is an upper bound."""
+    busy time (the sum of the device-side events' times: kernels, copies,
+    fills; one stream, so no overlap) and its idle share, and the kernels
+    that took the most device time. Host-side ops (``aten::*``) carry
+    their kernels' device time as well and are left out, so nothing is
+    counted twice. The profiler adds host time, so the idle share is an
+    upper bound."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -100,7 +116,8 @@ def device_profile(torch, fn) -> dict:
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0.0)
 
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_us = sum(dev_us(e) for e in events)
     if busy_us == 0:
         return {"wall_us": wall_us, "device": "not measured"}
@@ -110,11 +127,26 @@ def device_profile(torch, fn) -> dict:
             "top_us": {e.key[:60]: [dev_us(e), e.count] for e in top}}
 
 
+def record(torch, errs: dict, name: str, got, want, exact: bool,
+           what: str) -> None:
+    """max_abs_err of one comparison, kept as errs[name]'s maximum."""
+    e = max_abs_err(torch, got, want, exact, what=f"{name} {what}")
+    errs[name] = max(errs.get(name, 0.0), e)
+
+
+def both(torch, kernel, plain, *args, **kw):
+    """(kernel(...), plain(...)) on the same inputs, with a sync between,
+    so that a fault surfaces at the kernel that made it."""
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    return got, plain(*args, **kw)
+
+
 def compare_kernels(torch, graph, layouts, k: int) -> dict:
     """Each kernel against its plain version on ``graph``'s shapes; raises
     on a mismatch. Returns {kernel: max abs error}. Exact for the chunk
-    plan, the push step, max/min and 0/1 counts; plus_times on floats
-    within rtol 1e-5 (f32 atomics sum in another order than the plain
+    plan, the push step, max/min and 0/1 counts; plus_times on floats by
+    :func:`sum_check` (f32 atomics sum in another order than the plain
     scatter_reduce / index_add_)."""
     from gunrock_tpu_torch.algorithms import bfs
     from gunrock_tpu_torch.ops.kernels import chunkplan, semiring, spmm
@@ -130,18 +162,12 @@ def compare_kernels(torch, graph, layouts, k: int) -> dict:
     errs = {}
 
     def err(name, got, want, exact, what):
-        e = max_abs_err(torch, got, want, exact, what=f"{name} {what}")
-        errs[name] = max(errs.get(name, 0.0), e)
-
-    def both(kernel, plain, *args, **kw):
-        got = kernel(*args, **kw)
-        torch.cuda.synchronize()  # a fault surfaces at the kernel that made it
-        return got, plain(*args, **kw)
+        record(torch, errs, name, got, want, exact, what)
 
     for active in (full, tenth):
         for om in (None, half):
             (ch, queue, count), (want, _, _) = both(
-                chunkplan.chunk_activity, chunkplan.chunk_activity_plain,
+                torch, chunkplan.chunk_activity, chunkplan.chunk_activity_plain,
                 lay, active, om)
             err("chunk_activity", ch, want, True, "mask")
             ids = torch.sort(queue[: int(count)]).values
@@ -162,13 +188,19 @@ def compare_kernels(torch, graph, layouts, k: int) -> dict:
                     x = torch.where(active, noise.abs(), 0.0)
                 for om in (None, half):
                     got, want = both(
-                        semiring.bucketed_semiring_spmv_sparse,
+                        torch, semiring.bucketed_semiring_spmv_sparse,
                         semiring.bucketed_semiring_spmv_sparse_plain,
                         L, x, active, sr, out_mask=om, unit=unit)
-                    err(name, got, want, sr != "plus_times", f"{sr} unit={unit}")
+                    if sr == "plus_times":
+                        ch_act = chunkplan.chunk_activity_plain(L, active, om)[0]
+                        e = sum_check(torch, f"{name} {sr} unit={unit}", got,
+                                      *layout_terms(L, x, unit, ch_act), want)
+                        errs[name] = max(errs.get(name, 0.0), e)
+                    else:
+                        err(name, got, want, True, f"{sr} unit={unit}")
     for active in (full, tenth):  # the BFS pull itself: 0/1 counts, exact
         got, want = both(
-            semiring.bucketed_semiring_spmv_sparse,
+            torch, semiring.bucketed_semiring_spmv_sparse,
             semiring.bucketed_semiring_spmv_sparse_plain,
             lay, active.float(), active, "plus_times", out_mask=half, unit=True)
         err(name, got, want, True, "0/1")
@@ -176,9 +208,10 @@ def compare_kernels(torch, graph, layouts, k: int) -> dict:
     x01 = (torch.rand((V, k), device=dev, generator=gen) < 0.05).float()
     xr = torch.rand((V, k), device=dev, generator=gen)
     err("bucketed_spmm",
-        *both(spmm.bucketed_spmm, spmm.bucketed_spmm_plain, lay, x01), True, "0/1")
-    err("bucketed_spmm",
-        *both(spmm.bucketed_spmm, spmm.bucketed_spmm_plain, lay, xr), False, "float")
+        *both(torch, spmm.bucketed_spmm, spmm.bucketed_spmm_plain, lay, x01), True, "0/1")
+    got, want = both(torch, spmm.bucketed_spmm, spmm.bucketed_spmm_plain, lay, xr)
+    errs["bucketed_spmm"] = max(errs["bucketed_spmm"], sum_check(
+        torch, "bucketed_spmm float", got, *layout_terms(lay, xr, False), want))
 
     reached = torch.rand(V, device=dev, generator=gen) < 0.3
     dist0 = torch.where(reached, 1, UNREACHED).to(torch.int32)
@@ -193,41 +226,226 @@ def compare_kernels(torch, graph, layouts, k: int) -> dict:
     return errs
 
 
+def sssp_frontiers(torch, graph, source: int) -> list:
+    """[(frontier, distances)] before each iteration of a search from
+    ``source``, by the plain relaxation (the frontiers every SSSP path
+    of the port walks, Jacobi)."""
+    from gunrock_tpu_torch.algorithms import sssp
+
+    dist, front = sssp._start(graph, source)
+    states = []
+    while bool(front.any()):
+        states.append((front, dist))
+        front, dist = sssp.sssp_step(graph, front, dist)
+    return states
+
+
+F32_ROUNDOFF = 2.0 ** -24
+# the largest share of its limit that any sum_check error reached
+LIMIT_SHARE = {"max": 0.0}
+
+
+def sum_check(torch, what: str, got, row, terms, plain=None) -> float:
+    """A float plus_times result (f32[V] or f32[V, K]) against the float64
+    sum of its terms (``terms`` f64[n] or f64[n, K], added into rows
+    ``row``). Atomics add in any order, and the rounding error of an f32
+    sum of n terms walks like sqrt(n) * 2^-24 * (sum of |terms|), so each
+    row is held within 8x that: well past noise, whatever the order or
+    the signs (a cancelled sum is held to its terms, not its result),
+    while a bf16 product (2^-9) exceeds it in every row of under ~1,000
+    terms, and one missing term exceeds it in any row of under ~16,000
+    terms of like size. Raises if ``got``, or ``plain`` (the plain
+    version's result), is outside. Returns max |got - plain| (|got - the
+    float64 sum| without ``plain``)."""
+    V = got.shape[0]
+
+    def seg(t):
+        return torch.zeros((V, *t.shape[1:]), dtype=torch.float64,
+                           device=got.device).index_add_(0, row, t)
+
+    exact, scale = seg(terms), seg(terms.abs())
+    count = seg(torch.ones(row.numel(), dtype=torch.float64, device=got.device))
+    count = count.reshape(V, *[1] * (terms.dim() - 1))
+    limit = 8 * F32_ROUNDOFF * count.sqrt() * scale
+    for side, y in (("kernel", got), ("plain", plain)):
+        if y is None:
+            continue
+        diff = (y.double() - exact).abs()
+        excess = diff - limit
+        share = diff[limit > 0] / limit[limit > 0]
+        if share.numel():
+            LIMIT_SHARE["max"] = max(LIMIT_SHARE["max"], float(share.max()))
+        if bool((excess > 0).any()):
+            i = int(torch.argmax(excess.reshape(V, -1).max(dim=1).values))
+            raise AssertionError(
+                f"{what} ({side}): {int((excess > 0).sum())} entries past the "
+                f"f32 summation limit; row {i} got {y[i].tolist()}, float64 "
+                f"sum {exact[i].tolist()}, sum |terms| {scale[i].tolist()}, "
+                f"{int(count[i].flatten()[0])} terms")
+    ref = exact if plain is None else plain.double()
+    return float((got.double() - ref).abs().max()) if V else 0.0
+
+
+def layout_terms(layout, x, unit: bool, ch_act=None):
+    """(row, float64 terms) of a plus_times pass of ``x`` over ``layout``
+    (over the chunks in ``ch_act`` when given), for :func:`sum_check`."""
+    from gunrock_tpu_torch.ops.kernels.layout import slot_indices
+
+    row, col, slot = slot_indices(layout, ch_act)
+    xg = x[col].double()
+    if unit:
+        return row, xg
+    vals = layout.values[slot].double()
+    return row, vals * xg if x.dim() == 1 else vals[:, None] * xg
+
+
+def compare_family_kernels(torch, graph, layouts, source: int) -> dict:
+    """The semiring family's kernels against their plain versions; raises
+    on a mismatch. Returns {kernel: max abs error}. ``layouts``: "unit",
+    "valued", "big" (the pull layouts), "hits" (a unit push layout),
+    optionally "pr" (a valued pull layout at another W/C), "neg"/"neg_big"
+    (negative values) and "empty_row" (a layout with a row window no
+    chunk reaches). Exact for max/min and the push step; plus_times and
+    the HITS sums by :func:`sum_check`."""
+    from gunrock_tpu_torch.algorithms import sssp
+    from gunrock_tpu_torch.ops.kernels import hits_fused, semiring
+    from gunrock_tpu_torch.ops.kernels.layout import slot_indices
+
+    dev = graph.device
+    V = graph.n_vertices
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    errs = {}
+
+    def err(name, got, want, exact, what):
+        record(torch, errs, name, got, want, exact, what)
+
+    name = "bucketed_semiring_spmv"
+    for sr in ("plus_times", "max_times", "min_plus"):
+        for unit in (True, False):
+            keys = ["unit"] if unit else (
+                ["big", "neg_big"] if sr == "min_plus" else ["valued", "neg"])
+            keys += ["empty_row"]
+            keys += ["pr"] if sr == "plus_times" and not unit else []
+            for key in keys:
+                if key not in layouts:
+                    continue
+                noise = torch.randn(V, device=dev, generator=gen)
+                if sr == "min_plus":  # the SSSP pull input: _BIG off-frontier
+                    on = torch.rand(V, device=dev, generator=gen) < 0.5
+                    x = torch.where(on, noise, semiring._BIG)
+                elif sr == "max_times":
+                    x = noise
+                else:
+                    x = noise.abs()
+                got, want = both(torch, semiring.bucketed_semiring_spmv,
+                                 semiring.bucketed_semiring_spmv_plain,
+                                 layouts[key], x, sr, unit=unit)
+                if sr == "plus_times":
+                    e = sum_check(torch, f"{name} {sr} unit={unit} {key}", got,
+                                  *layout_terms(layouts[key], x, unit), want)
+                    errs[name] = max(errs.get(name, 0.0), e)
+                else:
+                    err(name, got, want, True, f"{sr} unit={unit} {key}")
+
+    name = "hits_fused_pass"
+    src, dst, _ = slot_indices(layouts["hits"])
+    for _ in range(2):
+        auth = torch.rand(V, device=dev, generator=gen)
+        hub = torch.rand(V, device=dev, generator=gen)
+        (h_k, a_k), (h_p, a_p) = both(torch, hits_fused.hits_fused_pass,
+                                      hits_fused.hits_fused_pass_plain,
+                                      layouts["hits"], auth, hub)
+        errs[name] = max(
+            errs.get(name, 0.0),
+            sum_check(torch, f"{name} hub_raw", h_k, src, auth[dst].double(), h_p),
+            sum_check(torch, f"{name} auth_raw", a_k, dst, hub[src].double(), a_p))
+
+    name = "sssp_push_step"
+    for front, dist in sssp_frontiers(torch, graph, source):
+        imp_k, new_k = sssp.sssp_push_step(graph, front, dist, 0)
+        torch.cuda.synchronize()
+        imp_p, new_p = sssp.sssp_push_step_plain(graph, front, dist)
+        err(name, imp_k, imp_p, True, "improved")
+        err(name, new_k, new_p, True, "distances")
+    return errs
+
+
 def check_edge_shapes(torch, dev) -> None:
     """The kernels at shapes the main path does not have: V = 1000 is no
     multiple of the window (128) or of a warp, so the last window and the
-    last warp run past V; and an edgeless layout."""
+    last warp run past V; an edgeless layout; negative values; and a
+    layout with a row window that no chunk reaches."""
     import numpy as np
 
     from gunrock_tpu_torch.formats import Coo
     from gunrock_tpu_torch.graph import build_graph
-    from gunrock_tpu_torch.ops.kernels import semiring, spmm
-    from gunrock_tpu_torch.ops.kernels.layout import build_bucketed_layout, pull_layout
+    from gunrock_tpu_torch.ops.kernels import hits_fused, semiring, spmm
+    from gunrock_tpu_torch.ops.kernels.layout import (
+        build_bucketed_layout,
+        pull_layout,
+        push_layout,
+    )
 
-    V = 1000
+    V, W = 1000, 128
     rng = np.random.default_rng(SEED)
     rows = (V * rng.random(20_000) ** 3).astype(np.int32)  # skewed: hub rows
     cols = rng.integers(0, V, 20_000).astype(np.int32)
     vals = (rng.random(20_000) + 0.1).astype(np.float32)
     graph = build_graph(Coo(V, V, rows, cols, vals), device=dev)
+    neg = vals * rng.choice(np.float32([-1, 1]), vals.size)
+    keep = rows // W != 3  # row window 3 gets no chunk
+
+    def layout(r, c, v, pad=0.0):
+        return build_bucketed_layout(r, c, v, V, window=W, chunk=W,
+                                     pad_value=pad, device=dev)
+
     layouts = {
-        "unit": pull_layout(graph, window=128, chunk=128, unit=True),
-        "valued": pull_layout(graph, window=128, chunk=128),
-        "big": pull_layout(graph, window=128, chunk=128,
-                           pad_value=semiring._BIG),
+        "unit": pull_layout(graph, window=W, chunk=W, unit=True),
+        "valued": pull_layout(graph, window=W, chunk=W),
+        "big": pull_layout(graph, window=W, chunk=W, pad_value=semiring._BIG),
+        "hits": push_layout(graph, window=W, chunk=W, unit=True),
+        "neg": layout(rows, cols, neg),
+        "neg_big": layout(rows, cols, neg, semiring._BIG),
+        "empty_row": layout(rows[keep], cols[keep], vals[keep]),
     }
     errs = compare_kernels(torch, graph, layouts, 5)
+    errs.update(compare_family_kernels(torch, graph, layouts, 0))
     empty = np.zeros(0, np.int32)
-    edgeless = build_bucketed_layout(empty, empty, empty.astype(np.float32),
-                                     V, window=128, chunk=128, device=dev)
+    edgeless = layout(empty, empty, empty.astype(np.float32))
     x = torch.ones(V, device=dev)
     act = torch.ones(V, dtype=torch.bool, device=dev)
     if not (bool((semiring.bucketed_semiring_spmv_sparse(
             edgeless, x, act, "min_plus") == torch.inf).all())
-            and bool((spmm.bucketed_spmm(edgeless, x[:, None]) == 0).all())):
+            and bool((semiring.bucketed_semiring_spmv(
+                edgeless, x, "min_plus") == torch.inf).all())
+            and bool((spmm.bucketed_spmm(edgeless, x[:, None]) == 0).all())
+            and all(bool((y == 0).all()) for y in hits_fused.hits_fused_pass(
+                edgeless, x, x))):
         raise AssertionError("edgeless layout: not the identity")
-    print(f"edge shapes (V={V}, W=128, {layouts['unit'].n_chunks} chunks; "
-          f"edgeless): max abs err {errs}")
+    torch.cuda.synchronize()
+    print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
+          f"negative values; an empty row window; edgeless): max abs err "
+          f"{errs}")
+
+
+def edge_shapes_main() -> int:
+    """Build the kernels and run only the edge-shape checks: the command
+    that ``compute-sanitizer`` wraps,
+
+        compute-sanitizer --tool memcheck python3 -c \\
+            'import sys, chip_smoke; sys.exit(chip_smoke.edge_shapes_main())'
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 1
+    from gunrock_tpu_torch.ops.kernels import _build
+
+    print(f"built kernels in {_build.build():.1f} s")
+    check_edge_shapes(torch, torch.device("cuda"))
+    print("edge shapes: ok")
+    return 0
 
 
 def check_kernels(torch, graph, layouts):
@@ -242,7 +460,7 @@ def check_kernels(torch, graph, layouts):
     dev = graph.device
     V = graph.n_vertices
     lay = layouts["unit"]
-    n_chunks, C = lay.n_chunks, lay.chunk
+    n_chunks = lay.n_chunks
     n_real = int((lay.row_local != lay.window).sum())
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     full = torch.ones(V, dtype=torch.bool, device=dev)
@@ -263,7 +481,7 @@ def check_kernels(torch, graph, layouts):
     # the BFS pull (plus_times, unit) on a full frontier, so that one
     # torch.sparse.mm over the pull matrix computes the same y
     xf = full.float()
-    b, by = bound_ms(8 * n_chunks * C + 4 * V + 2 * V + 4 * V + 16 * n_chunks,
+    b, by = bound_ms(8 * n_real + 4 * V + 2 * V + 4 * V + 16 * n_chunks,
                      n_real)
     A = torch.sparse_csr_tensor(
         graph.csc_offsets.long(), graph.csc_rows.long(),
@@ -293,7 +511,7 @@ def check_kernels(torch, graph, layouts):
 
     # SpMM, K=32, on random X
     xr = torch.rand((V, K), device=dev, generator=gen)
-    b, by = bound_ms(12 * n_chunks * C + 2 * 4 * V * K, 2 * n_real * K)
+    b, by = bound_ms(12 * n_real + 2 * 4 * V * K, 2 * n_real * K)
     rows["bucketed_spmm"] = dict(
         route="cuda", source="gunrock_tpu_torch/csrc/spmm.cu",
         replaces="gunrock_tpu/ops/pallas/spmm.py:85",
@@ -326,6 +544,7 @@ def check_kernels(torch, graph, layouts):
         bound_ms=b, bound_by=by, library_ms=None)
     print(f"push step input: {q.numel()} frontier vertices, {n_edges_q} "
           f"out-edges, {n_new} new")
+    rows.update(family_kernel_rows(torch, graph, layouts, timed))
     # the device's own busy time per call (ms above is wall time between
     # CUDA events, which the host's launch overhead can set); the push
     # step's includes its 1 MB distance copy
@@ -333,6 +552,112 @@ def check_kernels(torch, graph, layouts):
         prof = device_profile(torch, lambda: [fn() for _ in range(20)])
         rows[name]["device_ms"] = (prof["busy_us"] / 20e3 if "busy_us" in prof
                                    else None)
+    return rows
+
+
+def family_kernel_rows(torch, graph, layouts, timed) -> dict:
+    """The semiring family's kernels at the main path's shapes: each held
+    against its plain version (compare_family_kernels), then timed beside
+    its plain version, its bound and one PyTorch call computing the same
+    function (``library_ms``). Adds each timed call to ``timed``."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import sssp
+    from gunrock_tpu_torch.ops.kernels import hits_fused, semiring
+
+    dev = graph.device
+    V, E = graph.n_vertices, graph.n_edges
+    deg = graph.out_degrees()
+    source = int(np.argmax(np.diff(graph.host["row_offsets"])))
+    errs = compare_family_kernels(torch, graph, layouts, source)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = {}
+
+    def n_real(lay):  # real (non-padding) slots: the edges the pass needs
+        return int((lay.row_local != lay.window).sum())
+
+    def csr(offsets, cols, vals):
+        return torch.sparse_csr_tensor(offsets.long(), cols.long(), vals,
+                                       size=(V, V))
+
+    # B3 at PageRank's shape: valued plus_times over the W=4096/C=1024 pull
+    # layout; the library call is the pull matrix (CSR of the transpose)
+    lay = layouts["pr"]
+    x = torch.rand(V, device=dev, generator=gen)
+    A_pull = csr(graph.csc_offsets, graph.csc_rows, graph.csc_values)
+    max_abs_err(torch, semiring.bucketed_semiring_spmv(lay, x, "plus_times"),
+                torch.sparse.mm(A_pull, x[:, None])[:, 0], False, rtol=1e-4,
+                what="bucketed_semiring_spmv vs torch.sparse.mm")
+    b, by = bound_ms(12 * n_real(lay) + 8 * lay.n_chunks + 4 * V + 4 * V,
+                     2 * n_real(lay))
+    rows["bucketed_semiring_spmv"] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/semiring.cu",
+        replaces="gunrock_tpu/ops/pallas/semiring.py:491",
+        max_abs_err=errs["bucketed_semiring_spmv"],
+        ms=time_ms(torch, timed.setdefault(
+            "bucketed_semiring_spmv",
+            lambda: semiring.bucketed_semiring_spmv(lay, x, "plus_times"))),
+        plain_ms=time_ms(torch, lambda: semiring.bucketed_semiring_spmv_plain(
+            lay, x, "plus_times")),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.sparse.mm(A_pull, x[:, None])),
+        library="torch.sparse.mm (CSR)")
+    for key, sr in (("unit", "plus_times"), ("valued", "plus_times"),
+                    ("big", "min_plus")):
+        xk = torch.where(torch.rand(V, device=dev, generator=gen) < 0.5, x,
+                         semiring._BIG) if sr == "min_plus" else x
+        print(f"bucketed_semiring_spmv {sr} {key} W={layouts[key].window}/"
+              f"C={layouts[key].chunk}, ms:", time_ms(
+                  torch, lambda: semiring.bucketed_semiring_spmv(
+                      layouts[key], xk, sr, unit=key == "unit")))
+
+    # B8 on the W=4096/C=1024 unit push layout; the library computes the
+    # same two sums with two calls, A.auth and A^T.hub
+    lay = layouts["hits"]
+    auth = torch.rand(V, device=dev, generator=gen)
+    hub = torch.rand(V, device=dev, generator=gen)
+    ones = torch.ones(E, device=dev)
+    A = csr(graph.row_offsets, graph.col_indices, ones)
+    A_t = csr(graph.csc_offsets, graph.csc_rows, ones)
+    b, by = bound_ms(8 * n_real(lay) + 8 * lay.n_chunks + 4 * 4 * V,
+                     2 * n_real(lay))
+    rows["hits_fused_pass"] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/hits_fused.cu",
+        replaces="gunrock_tpu/ops/pallas/hits_fused.py:80",
+        max_abs_err=errs["hits_fused_pass"],
+        ms=time_ms(torch, timed.setdefault(
+            "hits_fused_pass",
+            lambda: hits_fused.hits_fused_pass(lay, auth, hub))),
+        plain_ms=time_ms(torch, lambda: hits_fused.hits_fused_pass_plain(
+            lay, auth, hub)),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(torch, lambda: (torch.sparse.mm(A, auth[:, None]),
+                                           torch.sparse.mm(A_t, hub[:, None]))),
+        library="torch.sparse.mm x2 (A.auth, A^T.hub), two calls")
+
+    # SSSP push step on the largest frontier of the search from the top
+    # source that the DO switch pushes (out-edges and size under E/192)
+    budget = max(4096, E // 192)
+    pushed = []
+    for front, dist in sssp_frontiers(torch, graph, source):
+        n_out, n_front = torch.stack(
+            [torch.where(front, deg, 0).sum(), front.sum()]).tolist()
+        if n_out < budget and n_front < budget:
+            pushed.append((n_out, n_front, front, dist))
+    n_out, n_front, front, dist = max(pushed, key=lambda t: t[0])
+    b, by = bound_ms(V + 4 * V + 4 * V + V + 12 * n_front + 12 * n_out, n_out)
+    rows["sssp_push_step"] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/sssp_push.cu",
+        replaces="gunrock_tpu/algorithms/sssp.py:84",
+        max_abs_err=errs["sssp_push_step"],
+        ms=time_ms(torch, timed.setdefault(
+            "sssp_push_step",
+            lambda: sssp.sssp_push_step(graph, front, dist, budget))),
+        plain_ms=time_ms(torch, lambda: sssp.sssp_push_step_plain(
+            graph, front, dist)),
+        bound_ms=b, bound_by=by, library_ms=None)
+    print(f"sssp push step input: {n_front} frontier vertices, {n_out} "
+          f"out-edges (budget {budget}; {len(pushed)} pushed iterations)")
     return rows
 
 
@@ -410,6 +735,140 @@ def main_path(torch, graph, layout):
     return bench, per_bfs
 
 
+def semiring_path(torch, graph) -> dict:
+    """Phase 3b, the semiring family's main path on the same graph: SSSP
+    (direction-optimizing, 8 top-degree sources; dense min_plus, one
+    source), PageRank (single and four dampings), HITS and SpMV, each
+    checked against the CPU oracle. Returns the summary line's dict."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import hits, pr, spmv, sssp
+    from gunrock_tpu_torch.examples import cpu_reference
+    from gunrock_tpu_torch.ops.configs import LoadBalance, Options
+
+    dev = graph.device
+    V = graph.n_vertices
+    deg = np.diff(graph.host["row_offsets"])
+    sources = np.argsort(-deg, kind="stable")[:8].tolist()
+    out = {}
+
+    def close(what, got, want, rtol, atol):
+        """Raise unless got and want (numpy) agree: the same infinities,
+        finite entries within atol + rtol * |want|."""
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        if not np.array_equal(np.isinf(got), np.isinf(want)):
+            raise AssertionError(f"{what}: infinities differ at "
+                                 f"{np.flatnonzero(np.isinf(got) != np.isinf(want))[:5]}")
+        fin = np.isfinite(want)
+        bad = np.abs(got[fin] - want[fin]) > atol + rtol * np.abs(want[fin])
+        if bad.any():
+            i = np.flatnonzero(fin)[np.flatnonzero(bad)[:5]]
+            raise AssertionError(f"{what}: {int(bad.sum())} entries differ, "
+                                 f"first {i}: {got[i]} vs {want[i]}")
+        return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+
+    # SSSP: distances against Dijkstra, predecessors on a tight in-edge
+    sssp.run(graph, sources[0], device=dev)  # warm-up
+    times, teps, depths = [], [], []
+    src_t, dst_t = graph.csc_rows.long(), graph.csc_dst.long()
+    for src in sources:
+        res = sssp.run(graph, src, warmup=False, device=dev)
+        dist = res.distances
+        close(f"sssp from {src}", dist.cpu().numpy(),
+              cpu_reference.sssp(graph, src), 1e-5, 0.0)
+        pred = res.predecessors.long()
+        tight = (src_t == pred[dst_t]) & torch.isclose(
+            dist[src_t] + graph.csc_values, dist[dst_t])
+        has = torch.zeros(V, dtype=torch.bool, device=dev).index_fill_(
+            0, dst_t[tight], True)
+        need = torch.isfinite(dist)
+        need[src] = False
+        if not bool((has == need).all()) or int(pred[src]) != -1:
+            raise AssertionError(f"sssp from {src}: a predecessor is not on "
+                                 "a tight in-edge")
+        times.append(res.elapsed_ms)
+        depths.append(res.search_depth)
+        teps.append(int(deg[np.isfinite(dist.cpu().numpy())].sum()))
+    avg_ms = float(np.mean(times))
+    out["sssp"] = {"avg_ms": avg_ms, "times_ms": times, "depths": depths,
+                   "mteps": float(np.mean([e / avg_ms / 1e3 for e in teps]))}
+    res = sssp.run(graph, sources[0],
+                   options=Options(load_balance=LoadBalance.PALLAS_MERGE_PATH),
+                   device=dev)
+    close("sssp dense min_plus", res.distances.cpu().numpy(),
+          cpu_reference.sssp(graph, sources[0]), 1e-5, 0.0)
+    out["sssp_dense"] = {"ms": res.elapsed_ms, "depth": res.search_depth}
+
+    # PageRank, single and batched. The ranks are ~1/V = 3.8e-6 and tol
+    # 1e-6 bounds only the last step, so a run is held to the float64
+    # oracle's iterate after as many iterations (tol 0): the difference is
+    # then f32 arithmetic alone, and a relative limit holds every vertex.
+    # The oracle's own last step must be under tol: the run did not stop
+    # early.
+    tol = 1e-6
+
+    def pr_check(what, p, iterations, alpha):
+        want = cpu_reference.pr(graph, alpha, tol=0.0, max_iter=iterations)
+        prev = cpu_reference.pr(graph, alpha, tol=0.0,
+                                max_iter=iterations - 1)
+        step = float(np.abs(want.astype(np.float64) - prev).max())
+        if step >= tol:
+            raise AssertionError(f"{what}: stopped after {iterations} "
+                                 f"iterations, but the float64 oracle's "
+                                 f"last step is {step} >= tol {tol}")
+        p = p.cpu().numpy()
+        err = close(what, p, want, 1e-4, 1e-9)
+        rel = float((np.abs(p - want.astype(np.float64)) / want).max())
+        return {"max_abs_err_vs_cpu": err, "max_rel_err_vs_cpu": rel,
+                "cpu_last_step": step}
+
+    res = pr.run(graph, tol=tol, device=dev)
+    out["pr"] = {"ms": res.elapsed_ms, "iterations": res.iterations,
+                 **pr_check("pr", res.p, res.iterations, 0.85)}
+    alphas = (0.75, 0.80, 0.85, 0.90)
+    batch = pr.run_batch(graph, alphas, tol=tol, device=dev)
+    out["pr_batch"] = {"ms": batch.elapsed_ms, "iterations": batch.iterations,
+                       "alphas": alphas, "columns": [
+                           pr_check(f"pr batch alpha={a}", batch.p[:, k],
+                                    batch.iterations, a)
+                           for k, a in enumerate(alphas)]}
+
+    # HITS (directed R-MAT: the fused sweep)
+    res = hits.run(graph, max_iterations=20, device=dev)
+    ref_auth, ref_hub = cpu_reference.hits(graph, res.iterations)
+    close("hits auth", res.auth.cpu().numpy(), ref_auth, 1e-4, 1e-6)
+    close("hits hub", res.hub.cpu().numpy(), ref_hub, 1e-4, 1e-6)
+    out["hits"] = {"ms": res.elapsed_ms, "iterations": res.iterations}
+
+    # SpMV on a seeded x, against the float64 sum over the edges
+    x = np.random.default_rng(SEED).random(V).astype(np.float32)
+    res = spmv.run(graph, x, device=dev)
+    xt = torch.from_numpy(x).to(dev).double()
+    err = sum_check(torch, "spmv", res.y, graph.edge_src.long(),
+                    graph.values.double() * xt[graph.col_indices.long()])
+    out["spmv"] = {"ms": res.elapsed_ms, "max_abs_err_vs_f64": err}
+
+    out["profile"] = {
+        "sssp": device_profile(torch, lambda: sssp.run(
+            graph, sources[0], warmup=False, device=dev)),
+        "pr": device_profile(torch, lambda: pr.run(graph, warmup=False,
+                                                   device=dev)),
+    }
+    return out
+
+
+def run_cli(argv: list) -> str:
+    """Run one CLI in a subprocess; raise unless it exits 0. Returns its
+    last line."""
+    cmd = [sys.executable, "-m", *argv]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {out.returncode}:\n"
+                             f"{out.stdout}\n{out.stderr}")
+    return out.stdout.strip().splitlines()[-1]
+
+
 def main() -> int:
     import torch
 
@@ -420,10 +879,16 @@ def main() -> int:
     from gunrock_tpu_torch.graph.reorder import degree_sort
     from gunrock_tpu_torch.io.generators import rmat_graph
     from gunrock_tpu_torch.ops.kernels import _build
-    from gunrock_tpu_torch.ops.kernels.layout import pull_layout
+    from gunrock_tpu_torch.ops.kernels.layout import (
+        dense_window_chunk,
+        pull_layout,
+        push_layout,
+    )
     from gunrock_tpu_torch.ops.kernels.semiring import _BIG
 
     # 1. setup
+    t_start = time.perf_counter()
+    seconds = {}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -438,50 +903,87 @@ def main() -> int:
 
     t0 = time.perf_counter()
     graph, _ = degree_sort(rmat_graph(SCALE, EDGE_FACTOR, seed=SEED))
+    # every layout of both paths, cached on the graph for the paths to reuse
+    dense_w, dense_c = dense_window_chunk(graph.n_vertices)
     layouts = {
         "unit": pull_layout(graph, unit=True),
         "valued": pull_layout(graph),
         "big": pull_layout(graph, pad_value=_BIG),
+        "pr": pull_layout(graph, window=dense_w, chunk=dense_c),
+        "hits": push_layout(graph, window=dense_w, chunk=dense_c, unit=True),
+        "spmv": push_layout(graph, window=2048, chunk=256),
     }
     lay = layouts["unit"]
     print(f"R-MAT {SCALE}: {graph.n_vertices} vertices, {graph.n_edges} edges, "
-          f"{lay.n_chunks} chunks at W={lay.window}/C={lay.chunk}, set up in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{lay.n_chunks} chunks at W={lay.window}/C={lay.chunk}, "
+          f"{layouts['pr'].n_chunks} at W={dense_w}/C={dense_c}")
+    seconds["setup"] = time.perf_counter() - t_start
 
     # 2. kernels against their plain versions
+    t0 = time.perf_counter()
     check_edge_shapes(torch, graph.device)
     rows = check_kernels(torch, graph, layouts)
     for k, r in rows.items():
         print(f"{k}: max_abs_err {r['max_abs_err']} ms {r['ms']:.4f} device "
               f"{r['device_ms']} plain {r['plain_ms']:.4f} bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) library "
+              f"{r['library_ms']}")
+    seconds["kernels"] = time.perf_counter() - t0
+    print(f"float plus_times checks: largest error {LIMIT_SHARE['max']:.4f} "
+          "of its f32 summation limit")
 
-    # 3. main path, launches counted from zero
+    # 3. the main paths, launches counted from zero before each
+    bfs_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",
+                   "bucketed_spmm", "bfs_push_step")
+    family_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",
+                      "sssp_push_step", "bucketed_semiring_spmv",
+                      "hits_fused_pass", "bucketed_spmm")
+    t0 = time.perf_counter()
     _build.reset_launches()
     bench, per_bfs = main_path(torch, graph, lay)
-    launches = dict(_build.LAUNCHES)
-    missing = [k for k in rows if launches.get(k, 0) == 0]
+    launches_bfs = dict(_build.LAUNCHES)
+    missing = [k for k in bfs_kernels if launches_bfs.get(k, 0) == 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing}: {launches}")
+        raise AssertionError(f"BFS path launched no {missing}: {launches_bfs}")
     bench["device"] = name
     bench["name_power_limit"] = smi
-    bench["launches"] = launches
+    bench["launches"] = launches_bfs
     bench["launches_per_bfs"] = per_bfs
     print(json.dumps(bench))
+    seconds["bfs_path"] = time.perf_counter() - t0
 
-    # 4. the CLI, validated against the CPU oracle
-    for extra in ([], ["--reorder", "degree"]):
-        cmd = [sys.executable, "-m", "gunrock_tpu_torch.examples.bfs",
-               "--market", "datasets/chesapeake.mtx", "--src", "0",
-               "--validate", *extra]
-        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                             timeout=300)
-        if out.returncode != 0:
-            raise AssertionError(f"{' '.join(cmd)} exited {out.returncode}:\n"
-                                 f"{out.stdout}\n{out.stderr}")
-        print(out.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    family = semiring_path(torch, graph)
+    launches_family = dict(_build.LAUNCHES)
+    missing = [k for k in family_kernels if launches_family.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"semiring-family path launched no {missing}: "
+                             f"{launches_family}")
+    family["launches"] = launches_family
+    family["sum_check_limit_share"] = LIMIT_SHARE["max"]
+    family["name_power_limit"] = smi
+    print(json.dumps({"semiring_family": family}))
+    seconds["semiring_path"] = time.perf_counter() - t0
 
-    table = [{"name": k, "launches": launches[k], **r} for k, r in rows.items()]
+    # 4. the CLIs, validated against the CPU oracles (chesapeake is
+    # symmetric, so the hits CLI takes the symmetric dense pass)
+    t0 = time.perf_counter()
+    market = ["--market", "datasets/chesapeake.mtx", "--validate"]
+    for argv in (["gunrock_tpu_torch.examples.bfs", "--src", "0"],
+                 ["gunrock_tpu_torch.examples.bfs", "--src", "0",
+                  "--reorder", "degree"],
+                 ["gunrock_tpu_torch.examples.sssp", "--src", "0"],
+                 ["gunrock_tpu_torch.examples.pr"],
+                 ["gunrock_tpu_torch.examples.hits"],
+                 ["gunrock_tpu_torch.examples.spmv"]):
+        print(run_cli(argv + market))
+    seconds["clis"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_start
+    print(json.dumps({"seconds": seconds}))
+
+    table = [{"name": k, "launches": launches_bfs.get(k, 0)
+              + launches_family.get(k, 0), **r} for k, r in rows.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

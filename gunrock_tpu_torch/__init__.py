@@ -15,12 +15,23 @@ Layout (mirrors ``gunrock_tpu``):
 - ``io``          — Matrix Market / binary CSR loading, generators, CLI flags
 - ``ops.kernels`` — the bucketed layout and the CUDA kernels with their
                     plain versions
-- ``algorithms``  — BFS (direction-optimizing, multi-source)
-- ``examples``    — the BFS CLI and its CPU oracle
+- ``ops``         — sorted-segment sums, operator options
+- ``framework``   — the Enactor/Problem loop
+- ``algorithms``  — BFS (direction-optimizing, multi-source), SSSP,
+                    PageRank, HITS, SpMV
+- ``examples``    — the CLIs and their CPU oracles
 """
 
 __version__ = "0.1.0"
 
 from gunrock_tpu_torch.graph import Graph, build_graph  # noqa: F401
-from gunrock_tpu_torch.interop import bfs, bfs_run  # noqa: F401
+from gunrock_tpu_torch.interop import (  # noqa: F401
+    bfs,
+    bfs_run,
+    hits_run,
+    pr_run,
+    spmv_run,
+    sssp,
+    sssp_run,
+)
 from gunrock_tpu_torch.ops.configs import Options  # noqa: F401

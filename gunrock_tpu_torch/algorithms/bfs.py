@@ -35,7 +35,7 @@ from gunrock_tpu_torch.ops.kernels.layout import build_auto_layout, pull_layout
 from gunrock_tpu_torch.ops.kernels.semiring import bucketed_semiring_spmv_sparse
 from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
 from gunrock_tpu_torch.utils.limits import UNREACHED
-from gunrock_tpu_torch.utils.timer import Timer
+from gunrock_tpu_torch.utils.timer import timed
 
 _BLOCKS_PER_SM = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -267,12 +267,7 @@ def run(
         def search():
             return bfs_kernel(graph, single_source)
 
-    if warmup:
-        search()
-    timer = Timer(graph.device)
-    timer.begin()
-    dist, pred, depth = search()
-    elapsed_ms = timer.end()
+    (dist, pred, depth), elapsed_ms = timed(graph.device, search, warmup)
     if pred is None:
         pred = _predecessors_from_distances(graph, dist)
     return Result(distances=dist, predecessors=pred, search_depth=depth,

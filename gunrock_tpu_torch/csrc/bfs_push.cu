@@ -14,29 +14,20 @@
 // scale 18). Its bytes are the frontier mask (V bytes), the queued rows'
 // offsets and edges, and the neighbours' distances: tens of kilobytes.
 //
-// Design: two launches on the caller's stream. compact_frontier turns the
-// mask into a queue with one warp-aggregated atomicAdd per warp (no
-// torch.nonzero, which would synchronise with the host). push_expand gives
-// each queued vertex one warp, whose lanes walk its out-edges with a stride
-// of 32 (coalesced col_indices reads) and claim each unreached neighbour
-// with atomicCAS, so each new vertex is marked exactly once. A persistent
-// grid reads the queue length on the device.
+// Design: two launches on the caller's stream. gr::compact_frontier
+// (common.cuh) turns the mask into a queue with one warp-aggregated
+// atomicAdd per warp (no torch.nonzero, which would synchronise with the
+// host). push_expand gives each queued vertex one warp, whose lanes walk
+// its out-edges with a stride of 32 (coalesced col_indices reads) and
+// claim each unreached neighbour with atomicCAS, so each new vertex is
+// marked exactly once. A persistent grid reads the queue length on the
+// device.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kUnreached = 0x7fffffff;
-
-__global__ void compact_frontier(const unsigned char* __restrict__ front,
-                                 int n_vertices, int* __restrict__ queue,
-                                 int* __restrict__ count) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int base = blockIdx.x * blockDim.x; base < n_vertices; base += stride) {
-    const int v = base + threadIdx.x;
-    gr::warp_append(v < n_vertices && front[v], v, queue, count);
-  }
-}
 
 __global__ void push_expand(const int* __restrict__ queue,
                             const int* __restrict__ count,
@@ -74,7 +65,7 @@ extern "C" int gr_bfs_push_step(const void* front, int n_vertices,
   int* queue = count + 1;
   cudaMemsetAsync(count, 0, sizeof(int), s);
   cudaMemsetAsync(new_mask, 0, n_vertices, s);
-  compact_frontier<<<gr::grid_for(n_vertices, 4096), gr::kThreads, 0, s>>>(
+  gr::compact_frontier<<<gr::grid_for(n_vertices, 4096), gr::kThreads, 0, s>>>(
       static_cast<const unsigned char*>(front), n_vertices, queue, count);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

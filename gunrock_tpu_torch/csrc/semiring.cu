@@ -1,64 +1,63 @@
-// Frontier-sparse semiring pull over the bucketed chunk layout.
+// Semiring pull over the bucketed chunk layout: the frontier-sparse pass
+// and the dense pass.
 //
-// Replaces: gunrock_tpu/ops/pallas/semiring.py::bucketed_semiring_spmv_sparse
-// (kernel body _make_sparse_kernel, v5: dynamic-gather x, MXU one-hot
-// scatter, launched through _tail_grid_dispatch).
+// Replaces:
+// - gunrock_tpu/ops/pallas/semiring.py::bucketed_semiring_spmv_sparse
+//   (kernel body _make_sparse_kernel, v5: dynamic-gather x, MXU one-hot
+//   scatter, launched through _tail_grid_dispatch);
+// - gunrock_tpu/ops/pallas/semiring.py::bucketed_semiring_spmv (kernel
+//   bodies _make_kernel_v1..v5, one contract: every chunk of the grid in
+//   order, first-visit init of each row window, rb_occupied mask after).
 //
-// Contract: for every chunk in `queue[0:*count]` (the active chunks from
-// chunkplan.cu) and every real slot e of it,
+// Contract: for every chunk in `queue[0:*count]` (sparse: the active
+// chunks from chunkplan.cu) or every chunk 0..n_chunks-1 (dense), and
+// every real slot e of it,
 //   y[rb*W + row_local[e]] (+)= msg(x[cb*W + col_local[e]], values[e]),
-// with y filled with the semiring identity by the caller. Padding slots
-// carry row_local == W and are skipped before any load of x.
+// with y filled with the semiring identity by the caller, so that rows no
+// chunk reaches keep it. Padding slots carry row_local == W and are
+// skipped before any load of x.
 //   plus_times: msg = val * x (x when unit), reduced with atomicAdd
 //   max_times:  msg = val * x, reduced with an atomic max; identity 0
 //   min_plus:   msg = min(val + x, BIG) (min(x, BIG) when unit: the
 //               value-free form is the (x)-identity, not weight 1)
 //
-// What bounds it on this card: bytes. Each active slot reads 8 B of
-// row/col metadata (12 B valued) and gathers 4 B of x from one 8 KB
-// window (L1/L2 resident); each non-identity message is one 4 B atomic.
-// A full frontier at R-MAT scale 18 (20,548 chunks x 256 slots) moves
-// ~44 MB, ~13 us at 3.35 TB/s.
+// What bounds it on this card: bytes. Each slot reads 8 B of row/col
+// metadata (12 B valued) and gathers 4 B of x from one window (L1/L2
+// resident); each non-identity message is one 4 B atomic. A full pass at
+// R-MAT scale 18 moves ~44 MB unit at W=2048/C=256 (20,548 chunks) and
+// ~68 MB valued at W=4096/C=1024 (5,359 chunks): 13-20 us at 3.35 TB/s.
 //
-// Design: a persistent grid of a few blocks per SM loops over the queue
-// (`q += gridDim.x`), so the active-chunk count is read on the device and
-// never by the host. A block takes one chunk at a time with one thread
-// per slot: neighbouring threads read neighbouring metadata. Messages that
-// cannot change y are not sent: 0 for plus_times (y starts at +0 and
-// x + 0 == x), <= 0 for max_times (identity 0), >= BIG for min_plus.
-// The TPU's one-hot gathers, bf16 hi/lo splits and [Cr,128] metadata
-// tiles have no counterpart: Hopper gathers and reduces natively.
+// Design: a persistent grid of a few blocks per SM loops over the chunks
+// (`q += gridDim.x`); in the sparse pass the active-chunk count is read on
+// the device and never by the host. A block takes one chunk at a time and
+// its threads stride over the chunk's slots, so C may exceed the block
+// (the dense layout of PageRank and HITS has C = 1024): neighbouring
+// threads read neighbouring metadata. Messages that cannot change y are
+// not sent: 0 for plus_times (y starts at +0 and x + 0 == x), <= 0 for
+// max_times (identity 0), >= BIG for min_plus. The TPU's one-hot
+// gathers, bf16 hi/lo splits, [Cr,128] metadata tiles, first-visit init
+// and rb_occupied mask have no counterpart: Hopper gathers and reduces
+// natively, and y starts at the identity.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr float kBig = 3.0e38f;
 enum Semiring { kPlusTimes = 0, kMinPlus = 1, kMaxTimes = 2 };
 
-// Float atomic min that is right for either sign: non-negative floats
-// order like signed ints, negative ones inversely to unsigned ints.
-// The sign bit (not v >= 0) picks the path so that -0.0 orders correctly.
-__device__ __forceinline__ void atomic_min_float(float* addr, float v) {
-  if ((__float_as_uint(v) >> 31) == 0u)
-    atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
-  else
-    atomicMax(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
-}
-
-template <int kSemiring, bool kUnit>
-__global__ void spmv_sparse(const int* __restrict__ queue,
-                            const int* __restrict__ count,
-                            const int* __restrict__ chunk_rb,
-                            const int* __restrict__ chunk_cb,
-                            const int* __restrict__ row_local,
-                            const int* __restrict__ col_local,
-                            const float* __restrict__ values,
-                            const float* __restrict__ x, float* __restrict__ y,
-                            int window, int chunk) {
-  const int n_active = *count;
-  for (int q = blockIdx.x; q < n_active; q += gridDim.x) {
-    const int ch = queue[q];
+template <int kSemiring, bool kUnit, bool kDense>
+__global__ void spmv_pull(const int* __restrict__ queue,
+                          const int* __restrict__ count, int n_chunks,
+                          const int* __restrict__ chunk_rb,
+                          const int* __restrict__ chunk_cb,
+                          const int* __restrict__ row_local,
+                          const int* __restrict__ col_local,
+                          const float* __restrict__ values,
+                          const float* __restrict__ x, float* __restrict__ y,
+                          int window, int chunk) {
+  const int n_work = kDense ? n_chunks : *count;
+  for (int q = blockIdx.x; q < n_work; q += gridDim.x) {
+    const int ch = kDense ? q : queue[q];
     const long xbase = static_cast<long>(chunk_cb[ch]) * window;
     const long ybase = static_cast<long>(chunk_rb[ch]) * window;
     const long sbase = static_cast<long>(ch) * chunk;
@@ -75,19 +74,48 @@ __global__ void spmv_sparse(const int* __restrict__ queue,
         // positive floats order like their int bit patterns
         if (m > 0.0f) atomicMax(reinterpret_cast<int*>(dst), __float_as_int(m));
       } else {
-        const float m = fminf(kUnit ? xv : values[sbase + s] + xv, kBig);
-        if (m < kBig) atomic_min_float(dst, m);
+        const float m = fminf(kUnit ? xv : values[sbase + s] + xv, gr::kBig);
+        if (m < gr::kBig) gr::atomic_min_float(dst, m);
       }
     }
   }
 }
 
-template <int kSemiring, bool kUnit>
-void launch(int blocks, cudaStream_t s, const int* queue, const int* count,
-            const int* rb, const int* cb, const int* row, const int* col,
-            const float* val, const float* x, float* y, int window, int chunk) {
-  spmv_sparse<kSemiring, kUnit><<<blocks, gr::kThreads, 0, s>>>(
-      queue, count, rb, cb, row, col, val, x, y, window, chunk);
+struct Args {
+  const int* queue;
+  const int* count;
+  int n_chunks;
+  const int* rb;
+  const int* cb;
+  const int* row;
+  const int* col;
+  const float* val;
+  const float* x;
+  float* y;
+  int window;
+  int chunk;
+};
+
+template <int kSemiring, bool kUnit, bool kDense>
+void launch(int blocks, cudaStream_t s, const Args& a) {
+  spmv_pull<kSemiring, kUnit, kDense><<<blocks, gr::kThreads, 0, s>>>(
+      a.queue, a.count, a.n_chunks, a.rb, a.cb, a.row, a.col, a.val, a.x,
+      a.y, a.window, a.chunk);
+}
+
+template <bool kDense>
+int dispatch(int semiring, int unit, int blocks, cudaStream_t s,
+             const Args& a) {
+  switch (semiring * 2 + (unit ? 1 : 0)) {
+    case kPlusTimes * 2: launch<kPlusTimes, false, kDense>(blocks, s, a); break;
+    case kPlusTimes * 2 + 1: launch<kPlusTimes, true, kDense>(blocks, s, a); break;
+    case kMinPlus * 2: launch<kMinPlus, false, kDense>(blocks, s, a); break;
+    case kMinPlus * 2 + 1: launch<kMinPlus, true, kDense>(blocks, s, a); break;
+    case kMaxTimes * 2: launch<kMaxTimes, false, kDense>(blocks, s, a); break;
+    case kMaxTimes * 2 + 1: launch<kMaxTimes, true, kDense>(blocks, s, a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -100,24 +128,29 @@ extern "C" int gr_spmv_sparse(int semiring, int unit, int blocks,
                               const void* row_local, const void* col_local,
                               const void* values, const void* x, void* y,
                               int window, int chunk, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto q = static_cast<const int*>(queue);
-  auto c = static_cast<const int*>(count);
-  auto rb = static_cast<const int*>(chunk_rb);
-  auto cb = static_cast<const int*>(chunk_cb);
-  auto row = static_cast<const int*>(row_local);
-  auto col = static_cast<const int*>(col_local);
-  auto val = static_cast<const float*>(values);
-  auto xs = static_cast<const float*>(x);
-  auto ys = static_cast<float*>(y);
-  switch (semiring * 2 + (unit ? 1 : 0)) {
-    case kPlusTimes * 2: launch<kPlusTimes, false>(blocks, s, q, c, rb, cb, row, col, val, xs, ys, window, chunk); break;
-    case kPlusTimes * 2 + 1: launch<kPlusTimes, true>(blocks, s, q, c, rb, cb, row, col, val, xs, ys, window, chunk); break;
-    case kMinPlus * 2: launch<kMinPlus, false>(blocks, s, q, c, rb, cb, row, col, val, xs, ys, window, chunk); break;
-    case kMinPlus * 2 + 1: launch<kMinPlus, true>(blocks, s, q, c, rb, cb, row, col, val, xs, ys, window, chunk); break;
-    case kMaxTimes * 2: launch<kMaxTimes, false>(blocks, s, q, c, rb, cb, row, col, val, xs, ys, window, chunk); break;
-    case kMaxTimes * 2 + 1: launch<kMaxTimes, true>(blocks, s, q, c, rb, cb, row, col, val, xs, ys, window, chunk); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const Args a{static_cast<const int*>(queue), static_cast<const int*>(count),
+               0, static_cast<const int*>(chunk_rb),
+               static_cast<const int*>(chunk_cb),
+               static_cast<const int*>(row_local),
+               static_cast<const int*>(col_local),
+               static_cast<const float*>(values), static_cast<const float*>(x),
+               static_cast<float*>(y), window, chunk};
+  return dispatch<false>(semiring, unit, blocks,
+                         static_cast<cudaStream_t>(stream), a);
+}
+
+// The dense pass over all n_chunks chunks; arguments as gr_spmv_sparse.
+extern "C" int gr_spmv_dense(int semiring, int unit, int blocks, int n_chunks,
+                             const void* chunk_rb, const void* chunk_cb,
+                             const void* row_local, const void* col_local,
+                             const void* values, const void* x, void* y,
+                             int window, int chunk, void* stream) {
+  const Args a{nullptr, nullptr, n_chunks, static_cast<const int*>(chunk_rb),
+               static_cast<const int*>(chunk_cb),
+               static_cast<const int*>(row_local),
+               static_cast<const int*>(col_local),
+               static_cast<const float*>(values), static_cast<const float*>(x),
+               static_cast<float*>(y), window, chunk};
+  return dispatch<true>(semiring, unit, blocks,
+                        static_cast<cudaStream_t>(stream), a);
 }

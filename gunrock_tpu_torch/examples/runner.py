@@ -1,6 +1,6 @@
 """Shared example scaffolding (the part of
-``gunrock_tpu/examples/runner.py`` the port's BFS CLI uses): load the
-graph, map sources and results through an optional relabeling, report
+``gunrock_tpu/examples/runner.py`` the port's CLIs use): load the graph,
+map sources, inputs and results through an optional relabeling, report
 times, validate."""
 
 from __future__ import annotations
@@ -38,6 +38,13 @@ def map_sources(params: Parameters, sources: list[int]) -> list[int]:
     if ro is None:
         return sources
     return [int(ro.rank[s]) for s in sources]
+
+
+def to_relabeled(params: Parameters, arr) -> np.ndarray:
+    """Per-vertex *input* (an x vector) from input ids into execution
+    space."""
+    ro = params.reordering
+    return arr if ro is None else np.asarray(arr)[ro.order]
 
 
 def to_original(params: Parameters, arr) -> np.ndarray:

@@ -1,10 +1,11 @@
-"""pygunrock-style API that fills caller-provided tensors (the BFS part of
-``gunrock_tpu/interop.py``).
+"""pygunrock-style API that fills caller-provided tensors (the BFS, SSSP,
+PageRank, HITS and SpMV part of ``gunrock_tpu/interop.py``).
 
-``bfs(graph, src, distances, predecessors)`` runs the search and writes
-the results into the given tensors, returning elapsed milliseconds. A
-CUDA tensor is filled device to device with ``tensor.copy_``; a CPU tensor
-or a numpy array receives a copy of the result.
+``bfs``/``sssp(graph, src, distances, predecessors)`` run the search and
+write the results into the given tensors, returning elapsed milliseconds.
+A CUDA tensor is filled device to device with ``tensor.copy_``; a CPU
+tensor or a numpy array receives a copy of the result. The ``*_run``
+wrappers return the algorithm's Result.
 """
 
 from __future__ import annotations
@@ -27,6 +28,50 @@ def _fill(out, values: torch.Tensor) -> None:
         out[...] = values.cpu().numpy()
         return
     raise TypeError(f"unsupported output tensor type {type(out)!r}")
+
+
+def sssp_run(graph: Graph, single_source: int,
+             options: Options | None = None, device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import sssp as _sssp
+
+    return _sssp.run(graph, single_source, options=options, device=device)
+
+
+def sssp(graph: Graph, single_source: int, distances=None, predecessors=None,
+         context=None, options: Options | None = None, device=DEFAULT) -> float:
+    """Reference ``gunrock.sssp`` (bindings.cu:186-224). Returns ms."""
+    del context  # the device is the context
+    res = sssp_run(graph, single_source, options=options, device=device)
+    _fill(distances, res.distances)
+    _fill(predecessors, res.predecessors)
+    return res.elapsed_ms
+
+
+def pr_run(graph: Graph, alpha: float = 0.85, tol: float = 1e-6,
+           options: Options | None = None, alphas=None, device=DEFAULT):
+    """``alphas=[...]`` runs the batched multi-damping sweep
+    (``pr.run_batch``: one [V, K] SpMM per iteration for all K)."""
+    from gunrock_tpu_torch.algorithms import pr as _pr
+
+    if alphas is not None:
+        return _pr.run_batch(graph, alphas, tol=tol, options=options,
+                             device=device)
+    return _pr.run(graph, alpha=alpha, tol=tol, options=options,
+                   device=device)
+
+
+def hits_run(graph: Graph, max_iterations: int = 50,
+             options: Options | None = None, device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import hits as _hits
+
+    return _hits.run(graph, max_iterations=max_iterations, options=options,
+                     device=device)
+
+
+def spmv_run(graph: Graph, x, options: Options | None = None, device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import spmv as _spmv
+
+    return _spmv.run(graph, x, options=options, device=device)
 
 
 def bfs_run(graph: Graph, single_source: int, options: Options | None = None,

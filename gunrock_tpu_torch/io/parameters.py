@@ -1,6 +1,6 @@
 """CLI parameter system for the examples (the part of
-``gunrock_tpu/io/parameters.py`` the port's BFS CLI uses, plus
-``--device``)."""
+``gunrock_tpu/io/parameters.py`` the port's CLIs use, plus ``--device``).
+``extra_args`` adds a CLI's own flags; they land on ``Parameters.extra``."""
 
 from __future__ import annotations
 
@@ -28,12 +28,18 @@ class Parameters:
     options: Options
     device: str
     reorder: str
+    # the argparse namespace, with each CLI's own flags (extra_args)
+    extra: object = None
     # set by examples.runner.load under --reorder degree
     # (graph/reorder.py Reordering)
     reordering: object = None
 
 
-def build_parser(algorithm: str) -> argparse.ArgumentParser:
+# algorithms whose CLI takes --src
+_SOURCED = {"bfs", "sssp"}
+
+
+def build_parser(algorithm: str, extra_args=None) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog=f"gunrock_tpu_torch {algorithm}",
         description=f"{algorithm} example (PyTorch/CUDA port)",
@@ -55,9 +61,15 @@ def build_parser(algorithm: str) -> argparse.ArgumentParser:
                    help="vertex relabeling before execution (degree = "
                    "hub-first degree sort); --src ids and printed results "
                    "stay in the input id space")
-    p.add_argument("-s", "--src", default="",
-                   help="source(s), comma-separated; random if omitted")
+    p.add_argument("--devices", type=int, default=0,
+                   help="multi-device run: not ported yet (the JAX "
+                   "package's parallel/ layer); 0/1 = one device")
+    if algorithm in _SOURCED:
+        p.add_argument("-s", "--src", default="",
+                       help="source(s), comma-separated; random if omitted")
     p.add_argument("--validate", action="store_true", help="CPU validation")
+    for args, kwargs in (extra_args or []):
+        p.add_argument(*args, **kwargs)
     return p
 
 
@@ -82,8 +94,12 @@ def parse_source_string(source_str: str, n_vertices: int, n_runs: int) -> list[i
     return sources
 
 
-def parse(algorithm: str, argv=None) -> Parameters:
-    ns = build_parser(algorithm).parse_args(argv)
+def parse(algorithm: str, argv=None, extra_args=None) -> Parameters:
+    parser = build_parser(algorithm, extra_args)
+    ns = parser.parse_args(argv)
+    if ns.devices > 1:
+        parser.error("--devices: the multi-device layer (the JAX package's "
+                     "parallel/) is not ported yet; run on one device")
     auto = default_options()
     options = Options(
         load_balance=auto.load_balance
@@ -95,10 +111,11 @@ def parse(algorithm: str, argv=None) -> Parameters:
     )
     return Parameters(
         filename=ns.market,
-        sources=ns.src,
+        sources=getattr(ns, "src", ""),
         num_runs=ns.num_runs,
         validate=ns.validate,
         options=options,
         device=ns.device,
         reorder=ns.reorder,
+        extra=ns,
     )

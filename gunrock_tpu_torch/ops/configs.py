@@ -64,3 +64,4 @@ class Options:
 
     load_balance: LoadBalance = LoadBalance.XLA_SEGMENT
     advance_direction: AdvanceDirection = AdvanceDirection.FORWARD
+    max_iterations: int = 0  # 0 = algorithm default

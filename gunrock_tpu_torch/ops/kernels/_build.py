@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("chunkplan", "semiring", "spmm", "bfs_push")
+SOURCES = ("chunkplan", "semiring", "spmm", "bfs_push", "hits_fused",
+           "sssp_push")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

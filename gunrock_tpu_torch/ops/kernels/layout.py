@@ -11,7 +11,8 @@ y window. Padding slots carry ``row_local == W``, ``col_local == 0`` and
 What the port leaves out: the TPU's SMEM chunk budget, W doubling and
 paged metadata (``layout.py:194-266``), and the ``rb*65536+cb`` packing
 limit (``layout.py:95-103``). The port keeps ``chunk_rb``/``chunk_cb`` as
-two int32 tensors and always builds at W=2048/C=256.
+two int32 tensors and builds at W=2048/C=256, or at W=4096/C=1024 where
+:func:`dense_window_chunk` picks it for a dense-only algorithm.
 """
 
 from __future__ import annotations
@@ -209,3 +210,22 @@ def pull_layout(graph, window: int | None = None, chunk: int | None = None,
     advance, y[dst] = reduce over in-edges of f(x[src], w). ``unit=True``
     sets every weight to 1.0 (BFS reachability). Cached on the graph."""
     return _graph_layout(graph, "pull", window, chunk, pad_value, unit)
+
+
+def dense_window_chunk(n_vertices: int) -> tuple[int, int] | None:
+    """(window, chunk) for the dense-only algorithms, PageRank and HITS
+    (no frontier-sparse passes): fewer, bigger chunks, W=4096/C=1024, for
+    2^16 <= V <= 2^20; None (the default W=2048/C=256) otherwise. The JAX
+    package's pick (``layout.py:297-309``); coarser windows skip fewer
+    chunks in a sparse pass, so traversals keep the default."""
+    if n_vertices < (1 << 16) or n_vertices > (1 << 20):
+        return None
+    return 4096, 1024
+
+
+def layout_for_graph(graph, window: int | None = None,
+                     chunk: int | None = None) -> BucketedEdges:
+    """The graph's CSR edges with their weights (rows = sources, cols =
+    destinations): the JAX package's name for the valued
+    :func:`push_layout`, whose cache entry it shares."""
+    return push_layout(graph, window=window, chunk=chunk)

@@ -1,22 +1,29 @@
-"""Frontier-sparse semiring pull over the bucketed layout.
+"""Semiring pull over the bucketed layout: the frontier-sparse pass and
+the dense pass.
 
-Port of ``gunrock_tpu/ops/pallas/semiring.py::bucketed_semiring_spmv_sparse``
-(kernel ``_make_sparse_kernel``). For every slot of every ACTIVE chunk
-(``chunkplan.chunk_activity``), y[row] (+)= msg(x[col], value):
+Ports of ``gunrock_tpu/ops/pallas/semiring.py``:
+
+- :func:`bucketed_semiring_spmv_sparse` (kernel ``_make_sparse_kernel``):
+  every slot of every ACTIVE chunk (``chunkplan.chunk_activity``);
+- :func:`bucketed_semiring_spmv` (kernels ``_make_kernel_v1..v5``, one
+  contract): every slot of every chunk, the dense pass of PageRank, SpMV,
+  symmetric HITS and the non-DO SSSP.
+
+Both compute y[row] (+)= msg(x[col], value):
 
 - ``plus_times``  y[r] = sum  val * x[c]         identity 0
 - ``max_times``   y[r] = max  val * x[c]         identity 0
 - ``min_plus``    y[r] = min (val + x[c])        identity _BIG; results
   >= _BIG come back as inf
 
-An active chunk reduces all of its slots, including those whose source is
-inactive: the contract assumes inactive x already holds the gather
-identity. Rows that no active chunk reaches come back as the identity.
-``unit=True`` skips the values: msg = x for plus/max, min(x, _BIG) for
-min_plus (the (x)-identity, not weight 1). ``exact`` is accepted for the
-callers and changes nothing: the port computes in f32 throughout.
+The sparse pass reduces all slots of an active chunk, including those
+whose source is inactive: the contract assumes inactive x already holds
+the gather identity. Rows that no (active) chunk reaches come back as the
+identity. ``unit=True`` skips the values: msg = x for plus/max, min(x,
+_BIG) for min_plus (the (x)-identity, not weight 1). ``exact`` is accepted
+for the callers and changes nothing: the port computes in f32 throughout.
 
-CUDA source: ``csrc/semiring.cu``.
+CUDA source: ``csrc/semiring.cu`` (one kernel template, sparse or dense).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gr_spmv_sparse": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _P],
+    "gr_spmv_dense": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -51,6 +59,77 @@ def _finish(y: torch.Tensor, V: int, semiring: str) -> torch.Tensor:
     if semiring == "min_plus":
         y = torch.where(y >= _BIG, torch.inf, y)
     return y
+
+
+def _empty_result(V: int, semiring: str, device) -> torch.Tensor:
+    """What an edgeless layout gives: the identity (inf for min_plus)."""
+    fill = torch.inf if semiring == "min_plus" else SEMIRINGS[semiring][1]
+    return torch.full((V,), fill, dtype=torch.float32, device=device)
+
+
+def bucketed_semiring_spmv(
+    layout: BucketedEdges,
+    x: torch.Tensor,
+    semiring: str = "plus_times",
+    unit: bool = False,
+) -> torch.Tensor:
+    """f32[V]: the dense semiring pull over every chunk of ``layout``. See
+    the module docstring for the contract; a min_plus layout carries
+    ``pad_value=_BIG``."""
+    sr_id, ident, _ = SEMIRINGS[semiring]
+    dev = layout.device
+    V = layout.n_vertices
+    _build.check_tensor(x, "x", torch.float32, (V,), dev)
+    if layout.n_chunks == 0:
+        return _empty_result(V, semiring, dev)
+    if dev.type == "cpu":
+        return bucketed_semiring_spmv_plain(layout, x, semiring, unit=unit)
+    if dev.type != "cuda":
+        raise ValueError(f"no semiring kernel for device {dev}")
+    W = layout.window
+    y = torch.full((layout.n_row_blocks * W,), ident, dtype=torch.float32,
+                   device=dev)
+    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
+    lib = _build.load("semiring", _SIGNATURES)
+    err = lib.gr_spmv_dense(
+        sr_id, int(unit), blocks, layout.n_chunks,
+        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
+        _build.ptr(layout.row_local), _build.ptr(layout.col_local),
+        None if unit else _build.ptr(layout.values), _build.ptr(x),
+        _build.ptr(y), W, layout.chunk, _build.stream(dev),
+    )
+    _build.check(err, "bucketed_semiring_spmv")
+    _build.LAUNCHES["bucketed_semiring_spmv"] += 1
+    return _finish(y, V, semiring)
+
+
+def _reduce(layout: BucketedEdges, x, semiring: str, unit: bool, row, col,
+            slot) -> torch.Tensor:
+    """The plain versions' body: messages of the given slots, reduced into
+    y (the identity everywhere else)."""
+    _, ident, reduce = SEMIRINGS[semiring]
+    xg = x[col]
+    if semiring == "min_plus":
+        msg = xg if unit else layout.values[slot] + xg
+        msg = torch.clamp(msg, max=_BIG)
+    else:
+        msg = xg if unit else layout.values[slot] * xg
+    y = torch.full((layout.n_row_blocks * layout.window,), ident,
+                   dtype=torch.float32, device=x.device)
+    y.scatter_reduce_(0, row, msg, reduce=reduce, include_self=True)
+    return _finish(y, layout.n_vertices, semiring)
+
+
+def bucketed_semiring_spmv_plain(
+    layout: BucketedEdges,
+    x: torch.Tensor,
+    semiring: str = "plus_times",
+    unit: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bucketed_semiring_spmv`."""
+    if layout.n_chunks == 0:
+        return _empty_result(layout.n_vertices, semiring, x.device)
+    return _reduce(layout, x, semiring, unit, *slot_indices(layout))
 
 
 def bucketed_semiring_spmv_sparse(
@@ -73,8 +152,7 @@ def bucketed_semiring_spmv_sparse(
     if out_mask is not None:
         _build.check_tensor(out_mask, "out_mask", torch.bool, (V,), dev)
     if layout.n_chunks == 0:
-        fill = torch.inf if semiring == "min_plus" else ident
-        return torch.full((V,), fill, dtype=torch.float32, device=dev)
+        return _empty_result(V, semiring, dev)
     if dev.type == "cpu":
         return bucketed_semiring_spmv_sparse_plain(
             layout, x, active, semiring, out_mask, unit=unit)
@@ -109,20 +187,8 @@ def bucketed_semiring_spmv_sparse_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`bucketed_semiring_spmv_sparse`."""
     del exact
-    _, ident, reduce = SEMIRINGS[semiring]
-    V = layout.n_vertices
     if layout.n_chunks == 0:
-        fill = torch.inf if semiring == "min_plus" else ident
-        return torch.full((V,), fill, dtype=torch.float32, device=x.device)
+        return _empty_result(layout.n_vertices, semiring, x.device)
     ch_act, _, _ = chunk_activity_plain(layout, active, out_mask)
-    row, col, slot = slot_indices(layout, ch_act)
-    xg = x[col]
-    if semiring == "min_plus":
-        msg = xg if unit else layout.values[slot] + xg
-        msg = torch.clamp(msg, max=_BIG)
-    else:
-        msg = xg if unit else layout.values[slot] * xg
-    y = torch.full((layout.n_row_blocks * layout.window,), ident,
-                   dtype=torch.float32, device=x.device)
-    y.scatter_reduce_(0, row, msg, reduce=reduce, include_self=True)
-    return _finish(y, V, semiring)
+    return _reduce(layout, x, semiring, unit,
+                   *slot_indices(layout, ch_act))

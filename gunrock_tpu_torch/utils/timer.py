@@ -32,3 +32,14 @@ class Timer:
             stop.synchronize()
             return self._t0.elapsed_time(stop)
         return (time.perf_counter() - self._t0) * 1e3
+
+
+def timed(device, fn, warmup: bool = True):
+    """``(fn(), ms)``: one call of ``fn`` timed with :class:`Timer` on
+    ``device``, after an untimed warm-up call when ``warmup``."""
+    if warmup:
+        fn()
+    timer = Timer(device)
+    timer.begin()
+    out = fn()
+    return out, timer.end()

@@ -37,8 +37,9 @@ def _entry_points():
     import numpy as np
 
     from gunrock_tpu_torch import interop
-    from gunrock_tpu_torch.algorithms import bfs
+    from gunrock_tpu_torch.algorithms import bfs, hits, pr, spmv, sssp
     from gunrock_tpu_torch.examples import bfs as bfs_cli
+    from gunrock_tpu_torch.examples import pr as pr_cli
     from gunrock_tpu_torch.formats import Coo
     from gunrock_tpu_torch.graph import build_graph
     from gunrock_tpu_torch.io import load_graph_file, rmat_graph
@@ -54,11 +55,20 @@ def _entry_points():
         "bfs.run": lambda: bfs.run(cpu_graph(), 0),
         "interop.bfs": lambda: interop.bfs(cpu_graph(), 0),
         "cli": lambda: bfs_cli.main(["--market", CHESAPEAKE, "--src", "0"]),
+        "sssp.run": lambda: sssp.run(cpu_graph(), 0),
+        "pr.run": lambda: pr.run(cpu_graph()),
+        "pr.run_batch": lambda: pr.run_batch(cpu_graph(), (0.85,)),
+        "hits.run": lambda: hits.run(cpu_graph()),
+        "spmv.run": lambda: spmv.run(cpu_graph(), np.ones(39, np.float32)),
+        "interop.sssp": lambda: interop.sssp(cpu_graph(), 0),
+        "pr_cli": lambda: pr_cli.main(["--market", CHESAPEAKE]),
     }
 
 
 @pytest.mark.parametrize("name", ["build_graph", "load_graph_file", "rmat_graph",
-                                  "bfs.run", "interop.bfs", "cli"])
+                                  "bfs.run", "interop.bfs", "cli", "sssp.run",
+                                  "pr.run", "pr.run_batch", "hits.run",
+                                  "spmv.run", "interop.sssp", "pr_cli"])
 def test_entry_point_default_device_needs_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

@@ -1,6 +1,8 @@
 """The port's kernels (their plain versions, which the CPU runs) against
 the JAX package's Pallas kernels in interpret mode, on one layout built by
-the JAX package and carried across with ``BucketedEdges.from_arrays``.
+the JAX package and carried across with ``BucketedEdges.from_arrays``:
+the chunk plan, the sparse and dense semiring passes, the SpMM and the
+fused HITS pass.
 
 Tolerances: the layout, the chunk plan and the max/min semirings are
 compared exactly (same chunks, order-free reductions, identical f32
@@ -18,8 +20,13 @@ import torch
 
 from gunrock_tpu.io.generators import rmat_graph as j_rmat_graph
 from gunrock_tpu.ops.pallas import semiring as jsemiring
+from gunrock_tpu.ops.pallas.hits_fused import hits_fused_pass as j_hits_fused_pass
+from gunrock_tpu.ops.pallas.layout import dense_window_chunk as j_dense_window_chunk
 from gunrock_tpu.ops.pallas.layout import build_bucketed_layout as j_build_layout
 from gunrock_tpu.ops.pallas.semiring import _BIG, _sparse_chunk_select
+from gunrock_tpu.ops.pallas.semiring import (
+    bucketed_semiring_spmv as j_spmv,
+)
 from gunrock_tpu.ops.pallas.semiring import (
     bucketed_semiring_spmv_sparse as j_spmv_sparse,
 )
@@ -29,13 +36,18 @@ from gunrock_tpu_torch.graph import Graph, GraphProperties
 from gunrock_tpu_torch.graph.graph import ARRAYS
 from gunrock_tpu_torch.ops.kernels import layout as tlayout
 from gunrock_tpu_torch.ops.kernels.chunkplan import chunk_activity
+from gunrock_tpu_torch.ops.kernels.hits_fused import hits_fused_pass
 from gunrock_tpu_torch.ops.kernels.layout import (
     DATA_FIELDS,
     META_FIELDS,
     BucketedEdges,
     build_bucketed_layout,
+    dense_window_chunk,
 )
-from gunrock_tpu_torch.ops.kernels.semiring import bucketed_semiring_spmv_sparse
+from gunrock_tpu_torch.ops.kernels.semiring import (
+    bucketed_semiring_spmv,
+    bucketed_semiring_spmv_sparse,
+)
 from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
 
 # W=128 (the JAX interpret-mode window), C=128 (v5 needs C % 128 == 0);
@@ -209,3 +221,104 @@ def test_spmm_matches_jax(exact):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _dense_x(rng, semiring, n=V):
+    """x for the dense pass: any sign for max/min (negative messages reach
+    the signed atomics), positive for plus_times (no cancellation, so
+    rtol bounds the JAX kernel's hi+lo error)."""
+    if semiring == "plus_times":
+        return rng.random(n).astype(np.float32)
+    return rng.standard_normal(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["edges", "empty_row_window", "edgeless"])
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("semiring", ["plus_times", "max_times", "min_plus"])
+def test_spmv_dense_matches_jax(semiring, unit, case):
+    """B3, the dense pass. min/max exact (the same f32 messages, an
+    order-free reduction); plus_times within rtol 1e-4 (the JAX kernel's
+    bf16 hi+lo split). Values carry both signs for max/min."""
+    rng = np.random.default_rng(14)
+    rows, cols, vals = random_edges(15, negative=semiring != "plus_times")
+    if case == "empty_row_window":
+        keep = rows // W != 1  # rows 128..255: a window no chunk reaches
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    elif case == "edgeless":
+        rows, cols, vals = rows[:0], cols[:0], vals[:0]
+    pad = _BIG if semiring == "min_plus" else 0.0
+    jl = j_build_layout(rows, cols, vals, V, window=W, chunk=C, pad_value=pad)
+    x = _dense_x(rng, semiring)
+    if semiring == "min_plus":  # the SSSP input: _BIG off the frontier
+        x = np.where(rng.random(V) < 0.5, x, np.float32(_BIG))
+    got = bucketed_semiring_spmv(carry(jl), torch.from_numpy(x), semiring,
+                                 unit=unit).numpy()
+    if case == "edgeless":
+        # the JAX kernel cannot run a grid of 0 chunks in interpret mode
+        # (its scalar-prefetch slice of pk fails); its callers return the
+        # identity instead (ops/pallas/spmv.py:34-35), as the port does
+        assert (got == (np.inf if semiring == "min_plus" else 0.0)).all()
+        return
+    want = np.asarray(j_spmv(jl, jnp.asarray(x), semiring, interpret=True,
+                             unit=unit))
+    if semiring == "plus_times":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+    if case == "empty_row_window":
+        ident = np.inf if semiring == "min_plus" else 0.0
+        assert (got[W:2 * W] == ident).all()
+        assert (got != ident).any()
+
+
+def _hits_dense(rows, cols, auth, hub):
+    """(hub_raw, auth_raw) in float64 from the edge list itself."""
+    hub_raw = np.zeros(V)
+    auth_raw = np.zeros(V)
+    np.add.at(hub_raw, rows, auth[cols])
+    np.add.at(auth_raw, cols, hub[rows])
+    return hub_raw, auth_raw
+
+
+def test_hits_fused_pass_matches_jax():
+    """B8 on a unit push layout whose chunks end in padding (row sentinel
+    W, col 0): the padding must add nothing to vertex cb*W. rtol 1e-4
+    against the JAX kernel (bf16 hi+lo), 1e-5 against the float64 sum."""
+    rng = np.random.default_rng(16)
+    rows, cols, _ = random_edges(17)
+    ones = np.ones(rows.size, np.float32)
+    jl = j_build_layout(rows, cols, ones, V, window=W, chunk=C)
+    tl = carry(jl)
+    pad = tl.row_local == W
+    assert pad.any() and (tl.col_local[pad] == 0).all()
+    auth = rng.random(V).astype(np.float32)
+    hub = rng.random(V).astype(np.float32)
+    want_h, want_a = j_hits_fused_pass(jl, jnp.asarray(auth), jnp.asarray(hub),
+                                       interpret=True)
+    got_h, got_a = hits_fused_pass(tl, torch.from_numpy(auth),
+                                   torch.from_numpy(hub))
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), rtol=1e-4,
+                               atol=1e-6)
+    ref_h, ref_a = _hits_dense(rows, cols, auth, hub)
+    np.testing.assert_allclose(got_h.numpy(), ref_h, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_a.numpy(), ref_a, rtol=1e-5, atol=1e-6)
+    # vertices cb*W with no in-edge would show phantom mass as nonzero
+    no_in = np.setdiff1d(np.arange(0, V, W), cols)
+    assert (got_a.numpy()[no_in] == 0).all()
+
+
+def test_hits_fused_pass_edgeless():
+    e = np.zeros(0, np.int32)
+    tl = carry(j_build_layout(e, e, e.astype(np.float32), 50, window=W,
+                              chunk=C))
+    ones = torch.ones(50)
+    for y in hits_fused_pass(tl, ones, ones):
+        assert (y == 0).all()
+
+
+@pytest.mark.parametrize("n_vertices", [1000, 1 << 16, 300_000, 1 << 20,
+                                        (1 << 20) + 1])
+def test_dense_window_chunk_matches_jax(n_vertices):
+    assert dense_window_chunk(n_vertices) == j_dense_window_chunk(n_vertices)
