@@ -17,6 +17,9 @@ Phases, each raising on failure:
    step) are checked the same way, also with negative values and a row
    window no chunk reaches, at the W=2048/C=256 pull layouts and the
    W=4096/C=1024 PageRank and HITS layouts.
+   The frontier family's kernels (fused max/min pass, frontier-sparse
+   SpMM, Boruvka min-cut pass) likewise, over the symmetrized coloring
+   layouts and the doubled canonical MST layout.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
    a. BFS: ``bfs.run`` (direction-optimizing BFS) from the 8
@@ -25,17 +28,25 @@ Phases, each raising on failure:
    b. the semiring family: ``sssp.run`` from the 8 highest-degree
       vertices and once with the dense min_plus pass, ``pr.run``,
       ``pr.run_batch`` over four dampings, ``hits.run`` and ``spmv.run``,
-      each checked against its CPU oracle.
-4. CLIs: bfs (twice), sssp, pr, hits and spmv with ``--validate``.
+      each checked against its CPU oracle;
+   c. the frontier family: ``color.run`` (greedy, rank, luby; validity
+      checked on the card over all edges), ``mst.run`` (weight and
+      components against scipy), ``kcore.run`` (against the CPU oracle),
+      ``ppr.run`` from the top-degree vertex and ``ppr.run_batch`` over 8
+      seeds (against the CPU oracle).
+4. CLIs: bfs (twice), sssp, pr, hits, spmv, color, mst, kcore and ppr with
+   ``--validate``, all started together.
 
 Output: the ``nvidia-smi`` name/power-limit line first, a bench line with
-bench.py's keys, a ``{"semiring_family": ...}`` line, the seconds of each
-phase, then the kernel table as one JSON line, and last ``{"ok": true,
+bench.py's keys, a ``{"semiring_family": ...}`` line, a
+``{"frontier_family": ...}`` line, the seconds of each phase, then the kernel table as one JSON line, and last ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, without a CUDA
 device or without the package beside it.
 
 ``edge_shapes_main()`` runs only the build and the edge-shape checks, for
-``compute-sanitizer``.
+``compute-sanitizer``; ``edge_shapes_main(checked=True, repeat=20)`` runs
+them on the range-checking build of the kernels (``_build.py``), which
+stands in where no sanitizer runs.
 """
 
 from __future__ import annotations
@@ -370,6 +381,132 @@ def compare_family_kernels(torch, graph, layouts, source: int) -> dict:
     return errs
 
 
+def compare_frontier_kernels(torch, graph, layouts, k: int,
+                             k_batch: int = 8) -> dict:
+    """The frontier family's kernels against their plain versions; raises
+    on a mismatch. Returns {kernel: max abs error}. ``layouts``: "color"
+    (symmetrized, loop-free, unit values), "rank" (the same edges, 0/1
+    values), "mst" with "mst_ranks" (doubled canonical edges and their
+    int32 slot ranks), optionally "empty_row" (a row window no chunk
+    reaches). Exact for the max/min pass, the min-cut pass and the SpMM on
+    signed one-hot X over 0/1 values; the SpMM on float X or float values
+    by :func:`sum_check`. With
+    ``out_mask`` the kernel and its plain version run the same chunks, so
+    every row is compared. Also the two kernels of the earlier slices at
+    the shapes only this family gives them: the frontier-sparse semiring
+    pass as rank coloring calls it over "rank" (exact), and the SpMM at
+    ``k_batch`` columns over "unit" (the pull layout) as the batched PPR
+    does (:func:`sum_check`)."""
+    from gunrock_tpu_torch.ops.kernels import chunkplan, mst_min, semiring, spmm
+
+    dev = graph.device
+    V = graph.n_vertices
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    full = torch.ones(V, dtype=torch.bool, device=dev)
+    third = torch.rand(V, device=dev, generator=gen) < 0.3
+    errs = {}
+
+    def err(name, got, want, what):
+        record(torch, errs, name, got, want, True, what)
+
+    prio = torch.randperm(V, device=dev, generator=gen).float() + 1.0
+    keys = [key for key in ("color", "rank", "empty_row") if key in layouts]
+    for key in keys:
+        L = layouts[key]
+        for active in (full, third):
+            x = torch.where(active, prio, 0.0)
+            onehot = torch.nn.functional.one_hot(
+                torch.randint(0, k, (V,), device=dev, generator=gen), k).float()
+            sign = torch.randint(-1, 2, (V, 1), device=dev, generator=gen)
+            delta = torch.where(active[:, None], onehot * sign, 0.0)
+            xr = torch.where(active[:, None],
+                             torch.rand((V, k), device=dev, generator=gen), 0.0)
+            for om in (None, active):
+                name = "bucketed_semiring_spmv_sparse_minmax"
+                got, want = both(
+                    torch, semiring.bucketed_semiring_spmv_sparse_minmax,
+                    semiring.bucketed_semiring_spmv_sparse_minmax_plain,
+                    L, x, active, om)
+                err(name, got[0], want[0], f"{key} ymax")
+                err(name, got[1], want[1], f"{key} ymin")
+                if bool(torch.isinf(got[1]).any()):
+                    raise AssertionError(f"{name} {key}: ymin holds inf")
+                name = "bucketed_spmm_sparse"
+                got, want = both(torch, spmm.bucketed_spmm_sparse,
+                                 spmm.bucketed_spmm_sparse_plain, L, delta,
+                                 active, om, exact=True)
+                if key == "empty_row":  # float values: sums round
+                    errs[name] = max(errs.get(name, 0.0), sum_check(
+                        torch, f"{name} {key} signed one-hot", got,
+                        *layout_terms(L, delta, False,
+                                      chunkplan.chunk_activity_plain(
+                                          L, active, om)[0]), want))
+                else:  # 0/1 values: sums of small integers
+                    err(name, got, want, f"{key} signed one-hot")
+                got, want = both(torch, spmm.bucketed_spmm_sparse,
+                                 spmm.bucketed_spmm_sparse_plain, L, xr,
+                                 active, om)
+                ch_act = chunkplan.chunk_activity_plain(L, active, om)[0]
+                errs[name] = max(errs.get(name, 0.0), sum_check(
+                    torch, f"{name} {key} float", got,
+                    *layout_terms(L, xr, False, ch_act), want))
+
+    # rank coloring's two passes of the frontier-sparse semiring kernel
+    # over the 0/1-valued rank layout, as color_kernel_rank_pallas makes
+    # them: the count of higher uncolored neighbours, then the max of the
+    # packed (rank, priority) keys; both exact (small integers in f32)
+    name = "bucketed_semiring_spmv_sparse"
+    L = layouts["rank"]
+    shift = max(0, max(1, (V - 1).bit_length()) - 18)
+    inv1 = ((V - 1 - torch.arange(V, dtype=torch.int32, device=dev))
+            >> shift) + 1
+    mult = ((V - 1) >> shift) + 2
+    for unc in (full, third):
+        got, want = both(torch, semiring.bucketed_semiring_spmv_sparse,
+                         semiring.bucketed_semiring_spmv_sparse_plain,
+                         L, unc.float(), unc, "plus_times", out_mask=unc)
+        err(name, got, want, "rank layout plus_times")
+        rankc = torch.clamp(want, max=31).to(torch.int32)
+        pack = torch.where(unc, (rankc * mult + inv1).float(), 0.0)
+        got, want = both(torch, semiring.bucketed_semiring_spmv_sparse,
+                         semiring.bucketed_semiring_spmv_sparse_plain,
+                         L, pack, unc, "max_times", out_mask=unc)
+        err(name, got, want, "rank layout max_times")
+
+    # the batched PPR's SpMM: k_batch residual columns over the unit pull
+    # layout, a sparse wave and a full one
+    name = "bucketed_spmm"
+    L = layouts["unit"]
+    for active in (third, full):
+        xb = torch.where(active[:, None], torch.rand(
+            (V, k_batch), device=dev, generator=gen), 0.0)
+        got, want = both(torch, spmm.bucketed_spmm, spmm.bucketed_spmm_plain,
+                         L, xb)
+        errs[name] = max(errs.get(name, 0.0), sum_check(
+            torch, f"{name} K={k_batch} float", got,
+            *layout_terms(L, xb, False), want))
+
+    name = "bucketed_min_rank_cut"
+    cases = [("mst", layouts["mst"], layouts["mst_ranks"])]
+    if "empty_row" in layouts:
+        L = layouts["empty_row"]
+        cases.append(("empty_row", L, torch.randint(
+            0, 1 << 20, (L.n_chunks * L.chunk,), device=dev, generator=gen,
+            dtype=torch.int32)))
+    for key, L, ranks in cases:
+        for n_roots in (V, max(2, V // 8), 1):  # 1: no cut edge anywhere
+            roots = torch.randint(0, n_roots, (V,), device=dev, generator=gen,
+                                  dtype=torch.int32)
+            got, want = both(torch, mst_min.bucketed_min_rank_cut,
+                             mst_min.bucketed_min_rank_cut_plain, L, ranks,
+                             roots)
+            err(name, got, want, f"{key} {n_roots} roots")
+            if n_roots == 1 and not bool((got == mst_min.NO_CUT).all()):
+                raise AssertionError(f"{name} {key}: a cut edge inside one "
+                                     "component")
+    return errs
+
+
 def check_edge_shapes(torch, dev) -> None:
     """The kernels at shapes the main path does not have: V = 1000 is no
     multiple of the window (128) or of a warp, so the last window and the
@@ -377,9 +514,10 @@ def check_edge_shapes(torch, dev) -> None:
     layout with a row window that no chunk reaches."""
     import numpy as np
 
+    from gunrock_tpu_torch.algorithms import color, mst
     from gunrock_tpu_torch.formats import Coo
     from gunrock_tpu_torch.graph import build_graph
-    from gunrock_tpu_torch.ops.kernels import hits_fused, semiring, spmm
+    from gunrock_tpu_torch.ops.kernels import hits_fused, mst_min, semiring, spmm
     from gunrock_tpu_torch.ops.kernels.layout import (
         build_bucketed_layout,
         pull_layout,
@@ -408,8 +546,13 @@ def check_edge_shapes(torch, dev) -> None:
         "neg_big": layout(rows, cols, neg, semiring._BIG),
         "empty_row": layout(rows[keep], cols[keep], vals[keep]),
     }
+    layouts["color"] = color._color_layout(graph, window=W, chunk=W)
+    layouts["rank"] = color._rank_color_layout(graph, window=W, chunk=W)
+    layouts["mst"], layouts["mst_ranks"] = mst._mst_rank_layout(
+        graph, window=W, chunk=W)
     errs = compare_kernels(torch, graph, layouts, 5)
     errs.update(compare_family_kernels(torch, graph, layouts, 0))
+    errs.update(compare_frontier_kernels(torch, graph, layouts, 5))
     empty = np.zeros(0, np.int32)
     edgeless = layout(empty, empty, empty.astype(np.float32))
     x = torch.ones(V, device=dev)
@@ -420,20 +563,37 @@ def check_edge_shapes(torch, dev) -> None:
                 edgeless, x, "min_plus") == torch.inf).all())
             and bool((spmm.bucketed_spmm(edgeless, x[:, None]) == 0).all())
             and all(bool((y == 0).all()) for y in hits_fused.hits_fused_pass(
-                edgeless, x, x))):
+                edgeless, x, x))
+            and bool((spmm.bucketed_spmm_sparse(edgeless, x[:, None], act)
+                      == 0).all())
+            and bool((mst_min.bucketed_min_rank_cut(
+                edgeless, torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(V, dtype=torch.int32, device=dev))
+                == mst_min.NO_CUT).all())):
         raise AssertionError("edgeless layout: not the identity")
+    ymax, ymin = semiring.bucketed_semiring_spmv_sparse_minmax(edgeless, x, act)
+    if not (bool((ymax == 0).all()) and bool((ymin == semiring._BIG).all())):
+        raise AssertionError("edgeless layout: max/min not (0, _BIG)")
     torch.cuda.synchronize()
     print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
           f"negative values; an empty row window; edgeless): max abs err "
           f"{errs}")
 
 
-def edge_shapes_main() -> int:
-    """Build the kernels and run only the edge-shape checks: the command
-    that ``compute-sanitizer`` wraps,
+def edge_shapes_main(checked: bool = False, repeat: int = 1) -> int:
+    """Build the kernels and run only the edge-shape checks, ``repeat``
+    times: the command that ``compute-sanitizer`` wraps,
 
         compute-sanitizer --tool memcheck python3 -c \\
             'import sys, chip_smoke; sys.exit(chip_smoke.edge_shapes_main())'
+
+    ``checked=True`` runs them on the range-checking build instead (every
+    computed index is tested before use and each launch is synchronised;
+    a bad index raises with its source line), for a machine where no
+    sanitizer runs:
+
+        python3 -c 'import sys, chip_smoke; sys.exit(
+            chip_smoke.edge_shapes_main(checked=True, repeat=20))'
     """
     import torch
 
@@ -442,9 +602,18 @@ def edge_shapes_main() -> int:
         return 1
     from gunrock_tpu_torch.ops.kernels import _build
 
-    print(f"built kernels in {_build.build():.1f} s")
-    check_edge_shapes(torch, torch.device("cuda"))
-    print("edge shapes: ok")
+    print(f"built kernels in {_build.build(checked=checked):.1f} s "
+          f"(checked={checked})")
+    _build.use_checked(checked)
+    try:
+        for i in range(repeat):
+            _build.reset_launches()
+            check_edge_shapes(torch, torch.device("cuda"))
+            print(f"edge shapes run {i + 1}/{repeat}: ok, no fault in "
+                  f"{sum(_build.LAUNCHES.values())} launches "
+                  f"(checked={checked})")
+    finally:
+        _build.use_checked(False)
     return 0
 
 
@@ -545,6 +714,12 @@ def check_kernels(torch, graph, layouts):
     print(f"push step input: {q.numel()} frontier vertices, {n_edges_q} "
           f"out-edges, {n_new} new")
     rows.update(family_kernel_rows(torch, graph, layouts, timed))
+    frontier_rows, frontier_errs = frontier_kernel_rows(torch, graph, layouts,
+                                                       timed)
+    rows.update(frontier_rows)
+    for name in ("bucketed_semiring_spmv_sparse", "bucketed_spmm"):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        frontier_errs[name])
     # the device's own busy time per call (ms above is wall time between
     # CUDA events, which the host's launch overhead can set); the push
     # step's includes its 1 MB distance copy
@@ -659,6 +834,198 @@ def family_kernel_rows(torch, graph, layouts, timed) -> dict:
     print(f"sssp push step input: {n_front} frontier vertices, {n_out} "
           f"out-edges (budget {budget}; {len(pushed)} pushed iterations)")
     return rows
+
+
+def frontier_kernel_rows(torch, graph, layouts, timed) -> tuple:
+    """The frontier family's kernels at the main path's shapes: each held
+    against its plain version (compare_frontier_kernels), then timed on
+    the inputs of the path's first, full-frontier round beside its plain
+    version, its bound and, for the SpMM, ``torch.sparse.mm`` over the
+    same matrix. Adds each timed call to ``timed``. Returns (rows, the
+    errors of every kernel compare_frontier_kernels held)."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import color
+    from gunrock_tpu_torch.ops.kernels import mst_min, semiring, spmm
+
+    dev = graph.device
+    V = graph.n_vertices
+    errs = compare_frontier_kernels(torch, graph, layouts, K)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    full = torch.ones(V, dtype=torch.bool, device=dev)
+    rows = {}
+
+    def n_real(lay):
+        return int((lay.row_local != lay.window).sum())
+
+    # B6 on Luby's first round: every vertex uncolored, priorities 1..V
+    lay = layouts["color"]
+    x = torch.randperm(V, device=dev, generator=gen).float() + 1.0
+    b, by = bound_ms(12 * n_real(lay) + 8 * lay.n_chunks + 4 * V + 2 * V
+                     + 8 * V, 3 * n_real(lay))
+    name = "bucketed_semiring_spmv_sparse_minmax"
+    rows[name] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/semiring.cu",
+        replaces="gunrock_tpu/ops/pallas/semiring.py:1022",
+        max_abs_err=errs[name],
+        ms=time_ms(torch, timed.setdefault(
+            name, lambda: semiring.bucketed_semiring_spmv_sparse_minmax(
+                lay, x, full, full))),
+        plain_ms=time_ms(
+            torch, lambda: semiring.bucketed_semiring_spmv_sparse_minmax_plain(
+                lay, x, full, full), 5),
+        bound_ms=b, bound_by=by, library_ms=None)
+
+    # B5 on greedy coloring's first round: every vertex changed, X the
+    # one-hot of the rank-init colors; the library call is the same matrix
+    # (rows = vertices, cols = neighbours, values = the higher predicate)
+    rlay, rank = color._greedy_color_setup(graph)
+    x1 = torch.nn.functional.one_hot(torch.clamp(rank, max=K - 1).long(),
+                                     K).float()
+    xr = torch.rand((V, K), device=dev, generator=gen)
+    src, dst = color._sym_loopfree_edges(graph)
+    A = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([src, dst]).astype(np.int64)).to(dev),
+        torch.from_numpy((dst < src).astype(np.float32)).to(dev),
+        size=(V, V)).coalesce().to_sparse_csr()
+    name = "bucketed_spmm_sparse"
+    max_abs_err(torch, spmm.bucketed_spmm_sparse(rlay, x1, full, full,
+                                                 exact=True),
+                torch.sparse.mm(A, x1), True,
+                what="spmm_sparse vs torch.sparse.mm")
+    b, by = bound_ms(12 * n_real(rlay) + 8 * rlay.n_chunks + 2 * 4 * V * K
+                     + 2 * V, 2 * n_real(rlay) * K)
+    rows[name] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/spmm.cu",
+        replaces="gunrock_tpu/ops/pallas/spmm.py:188",
+        max_abs_err=errs[name],
+        ms=time_ms(torch, timed.setdefault(
+            name, lambda: spmm.bucketed_spmm_sparse(rlay, x1, full, full,
+                                                    exact=True))),
+        plain_ms=time_ms(torch, lambda: spmm.bucketed_spmm_sparse_plain(
+            rlay, x1, full, full), 5),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.sparse.mm(A, x1)),
+        library="torch.sparse.mm (CSR)")
+    print(f"bucketed_spmm_sparse K={K}, full frontier, float X, ms:",
+          time_ms(torch, lambda: spmm.bucketed_spmm_sparse(rlay, xr, full,
+                                                           full)),
+          "torch.sparse.mm:", time_ms(torch, lambda: torch.sparse.mm(A, xr)))
+    tenth = torch.rand(V, device=dev, generator=gen) < 0.1
+    x10 = torch.where(tenth[:, None], x1, 0.0)
+    print("bucketed_spmm_sparse one-hot X, 10% changed, 50% unstable, ms:",
+          time_ms(torch, lambda: spmm.bucketed_spmm_sparse(
+              rlay, x10, tenth, torch.rand(V, device=dev) < 0.5, exact=True)))
+
+    # B7 on Boruvka's first round: every vertex its own component
+    mlay, ranks = layouts["mst"], layouts["mst_ranks"]
+    roots = torch.arange(V, dtype=torch.int32, device=dev)
+    b, by = bound_ms(12 * n_real(mlay) + 8 * mlay.n_chunks + 4 * V + 4 * V,
+                     2 * n_real(mlay))
+    name = "bucketed_min_rank_cut"
+    rows[name] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/mst_min.cu",
+        replaces="gunrock_tpu/ops/pallas/mst_min.py:78",
+        max_abs_err=errs[name],
+        ms=time_ms(torch, timed.setdefault(
+            name, lambda: mst_min.bucketed_min_rank_cut(mlay, ranks, roots))),
+        plain_ms=time_ms(torch, lambda: mst_min.bucketed_min_rank_cut_plain(
+            mlay, ranks, roots), 5),
+        bound_ms=b, bound_by=by, library_ms=None)
+    few = torch.randint(0, 4, (V,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    print(f"frontier layouts: color {lay.n_chunks} chunks / {n_real(lay)} "
+          f"slots, mst {mlay.n_chunks} chunks / {n_real(mlay)} slots; "
+          "bucketed_min_rank_cut with 4 components, ms:",
+          time_ms(torch, lambda: mst_min.bucketed_min_rank_cut(mlay, ranks,
+                                                               few)))
+    return rows, errs
+
+
+def frontier_path(torch, graph) -> dict:
+    """Phase 3c, the frontier family's main path on the same graph: the
+    three coloring strategies, MST, k-core, PPR (one seed, and a batch of
+    8), each checked. Returns the summary line's dict."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from gunrock_tpu_torch.algorithms import color, kcore, mst, ppr
+    from gunrock_tpu_torch.examples import cpu_reference
+
+    dev = graph.device
+    V = graph.n_vertices
+    h = graph.host
+    deg = np.diff(h["row_offsets"])
+    out = {}
+
+    # coloring: proper over every edge, checked on the card
+    src, dst = graph.edge_src.long(), graph.col_indices.long()
+    off_diag = src != dst
+    for strategy in ("greedy", "rank", "luby"):
+        res = color.run(graph, seed=SEED, strategy=strategy, device=dev)
+        c = res.colors
+        if not bool((c >= 0).all()) or bool(
+                (c[src[off_diag]] == c[dst[off_diag]]).any()):
+            raise AssertionError(f"color {strategy}: not a proper coloring")
+        out[f"color_{strategy}"] = {
+            "ms": res.elapsed_ms, "iterations": res.iterations,
+            "colors_used": int(c.max()) + 1}
+
+    # MST: weight against scipy's, a forest of V - components edges
+    res = mst.run(graph, device=dev)
+    want = cpu_reference.mst_weight(graph)
+    if abs(res.mst_weight - want) > 1e-5 * abs(want):
+        raise AssertionError(f"mst weight {res.mst_weight} != scipy's {want}")
+    n_comp = connected_components(csr_matrix(
+        (np.ones(graph.n_edges), h["col_indices"], h["row_offsets"]),
+        shape=(V, V)), directed=False)[0]
+    if res.n_components != n_comp or int(res.mst_edges.sum()) != V - n_comp:
+        raise AssertionError(
+            f"mst: {res.n_components} components and "
+            f"{int(res.mst_edges.sum())} edges, scipy finds {n_comp}")
+    out["mst"] = {"ms": res.elapsed_ms, "weight": res.mst_weight,
+                  "scipy_weight": want, "components": res.n_components,
+                  "rounds": res.rounds, "jump_passes": res.jump_passes}
+
+    # k-core against the peeling oracle
+    res = kcore.run(graph, device=dev)
+    if not np.array_equal(res.k_cores.cpu().numpy(),
+                          cpu_reference.kcore(graph)):
+        raise AssertionError("kcore: core numbers differ from the CPU oracle")
+    out["kcore"] = {"ms": res.elapsed_ms, "rounds": res.rounds,
+                    "degeneracy": res.degeneracy}
+
+    # PPR from the top-degree vertex, and a batch over the 8 top-degree
+    # ones, against the float32 CPU oracle
+    seeds = np.argsort(-deg, kind="stable")[:8].tolist()
+
+    def ppr_err(what, p, seed):
+        ref = cpu_reference.ppr(graph, seed)
+        p = p.cpu().numpy()
+        bad = np.abs(p - ref) > 1e-6 + 1e-4 * np.abs(ref)
+        if bad.any():
+            i = np.flatnonzero(bad)[:5]
+            raise AssertionError(f"{what}: {int(bad.sum())} entries differ "
+                                 f"from the CPU oracle, first {i}: {p[i]} vs "
+                                 f"{ref[i]}")
+        return float(np.abs(p - ref).max())
+
+    res = ppr.run(graph, seeds[0], device=dev)
+    out["ppr"] = {"ms": res.elapsed_ms, "iterations": res.iterations,
+                  "seed": seeds[0], "mass": float(res.p.sum()),
+                  "max_abs_err_vs_cpu": ppr_err("ppr", res.p, seeds[0])}
+    p, ms = ppr.run_batch(graph, seeds, device=dev)
+    out["ppr_batch"] = {"ms": ms, "seeds": seeds, "max_abs_err_vs_cpu": max(
+        ppr_err(f"ppr batch seed {s}", p[k], s) for k, s in enumerate(seeds))}
+
+    out["profile"] = {
+        "color_greedy": device_profile(torch, lambda: color.run(
+            graph, strategy="greedy", warmup=False, device=dev)),
+        "mst": device_profile(torch, lambda: mst.run(graph, warmup=False,
+                                                     device=dev)),
+    }
+    return out
 
 
 def main_path(torch, graph, layout):
@@ -857,16 +1224,32 @@ def semiring_path(torch, graph) -> dict:
     return out
 
 
-def run_cli(argv: list) -> str:
-    """Run one CLI in a subprocess; raise unless it exits 0. Returns its
-    last line."""
-    cmd = [sys.executable, "-m", *argv]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
-    if out.returncode != 0:
-        raise AssertionError(f"{' '.join(cmd)} exited {out.returncode}:\n"
-                             f"{out.stdout}\n{out.stderr}")
-    return out.stdout.strip().splitlines()[-1]
+def run_clis(argvs: list) -> list:
+    """Run the CLIs in subprocesses, all started together; raise unless
+    each exits 0. Returns their last lines, in order."""
+    cmds = [[sys.executable, "-m", *argv] for argv in argvs]
+    procs = [subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    lines, failures = [], []
+    deadline = time.monotonic() + 300
+    for cmd, proc in zip(cmds, procs):
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            failures.append(f"{' '.join(cmd)} timed out:\n{stdout}\n{stderr}")
+            continue
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                            f"{stdout}\n{stderr}")
+        else:
+            lines.append(stdout.strip().splitlines()[-1])
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return lines
 
 
 def main() -> int:
@@ -876,6 +1259,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    from gunrock_tpu_torch.algorithms import color, mst
     from gunrock_tpu_torch.graph.reorder import degree_sort
     from gunrock_tpu_torch.io.generators import rmat_graph
     from gunrock_tpu_torch.ops.kernels import _build
@@ -903,7 +1287,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     graph, _ = degree_sort(rmat_graph(SCALE, EDGE_FACTOR, seed=SEED))
-    # every layout of both paths, cached on the graph for the paths to reuse
+    # every layout of the three paths, cached on the graph for the paths
+    # to reuse
     dense_w, dense_c = dense_window_chunk(graph.n_vertices)
     layouts = {
         "unit": pull_layout(graph, unit=True),
@@ -912,7 +1297,10 @@ def main() -> int:
         "pr": pull_layout(graph, window=dense_w, chunk=dense_c),
         "hits": push_layout(graph, window=dense_w, chunk=dense_c, unit=True),
         "spmv": push_layout(graph, window=2048, chunk=256),
+        "color": color._color_layout(graph),
+        "rank": color._rank_color_layout(graph),
     }
+    layouts["mst"], layouts["mst_ranks"] = mst._mst_rank_layout(graph)
     lay = layouts["unit"]
     print(f"R-MAT {SCALE}: {graph.n_vertices} vertices, {graph.n_edges} edges, "
           f"{lay.n_chunks} chunks at W={lay.window}/C={lay.chunk}, "
@@ -966,24 +1354,46 @@ def main() -> int:
     print(json.dumps({"semiring_family": family}))
     seconds["semiring_path"] = time.perf_counter() - t0
 
+    frontier_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",
+                        "bucketed_spmm", "bucketed_semiring_spmv_sparse_minmax",
+                        "bucketed_spmm_sparse", "bucketed_min_rank_cut")
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    frontier = frontier_path(torch, graph)
+    launches_frontier = dict(_build.LAUNCHES)
+    missing = [k for k in frontier_kernels if launches_frontier.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"frontier-family path launched no {missing}: "
+                             f"{launches_frontier}")
+    frontier["launches"] = launches_frontier
+    frontier["name_power_limit"] = smi
+    print(json.dumps({"frontier_family": frontier}))
+    seconds["frontier_path"] = time.perf_counter() - t0
+
     # 4. the CLIs, validated against the CPU oracles (chesapeake is
     # symmetric, so the hits CLI takes the symmetric dense pass)
     t0 = time.perf_counter()
     market = ["--market", "datasets/chesapeake.mtx", "--validate"]
-    for argv in (["gunrock_tpu_torch.examples.bfs", "--src", "0"],
-                 ["gunrock_tpu_torch.examples.bfs", "--src", "0",
-                  "--reorder", "degree"],
-                 ["gunrock_tpu_torch.examples.sssp", "--src", "0"],
-                 ["gunrock_tpu_torch.examples.pr"],
-                 ["gunrock_tpu_torch.examples.hits"],
-                 ["gunrock_tpu_torch.examples.spmv"]):
-        print(run_cli(argv + market))
+    for line in run_clis([argv + market for argv in (
+            ["gunrock_tpu_torch.examples.bfs", "--src", "0"],
+            ["gunrock_tpu_torch.examples.bfs", "--src", "0",
+             "--reorder", "degree"],
+            ["gunrock_tpu_torch.examples.sssp", "--src", "0"],
+            ["gunrock_tpu_torch.examples.pr"],
+            ["gunrock_tpu_torch.examples.hits"],
+            ["gunrock_tpu_torch.examples.spmv"],
+            ["gunrock_tpu_torch.examples.color"],
+            ["gunrock_tpu_torch.examples.mst"],
+            ["gunrock_tpu_torch.examples.kcore"],
+            ["gunrock_tpu_torch.examples.ppr", "--src", "0"])]):
+        print(line)
     seconds["clis"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"seconds": seconds}))
 
     table = [{"name": k, "launches": launches_bfs.get(k, 0)
-              + launches_family.get(k, 0), **r} for k, r in rows.items()]
+              + launches_family.get(k, 0) + launches_frontier.get(k, 0), **r}
+             for k, r in rows.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -15,10 +15,11 @@ Layout (mirrors ``gunrock_tpu``):
 - ``io``          — Matrix Market / binary CSR loading, generators, CLI flags
 - ``ops.kernels`` — the bucketed layout and the CUDA kernels with their
                     plain versions
-- ``ops``         — sorted-segment sums, operator options
+- ``ops``         — sorted-segment sums, sorts, operator options
 - ``framework``   — the Enactor/Problem loop
 - ``algorithms``  — BFS (direction-optimizing, multi-source), SSSP,
-                    PageRank, HITS, SpMV
+                    PageRank, HITS, SpMV, graph coloring, minimum spanning
+                    tree, k-core, personalized PageRank
 - ``examples``    — the CLIs and their CPU oracles
 """
 
@@ -28,7 +29,11 @@ from gunrock_tpu_torch.graph import Graph, build_graph  # noqa: F401
 from gunrock_tpu_torch.interop import (  # noqa: F401
     bfs,
     bfs_run,
+    color_run,
     hits_run,
+    kcore_run,
+    mst_run,
+    ppr_run,
     pr_run,
     spmv_run,
     sssp,

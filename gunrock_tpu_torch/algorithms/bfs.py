@@ -40,7 +40,7 @@ from gunrock_tpu_torch.utils.timer import timed
 _BLOCKS_PER_SM = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_bfs_push_step": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P],
+    "gr_bfs_push_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P],
 }
 
 
@@ -95,7 +95,8 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
     scratch = torch.empty(V + 1, dtype=torch.int32, device=dev)
     lib = _build.load("bfs_push", _SIGNATURES)
     err = lib.gr_bfs_push_step(
-        _build.ptr(front_mask), V, _build.ptr(graph.row_offsets),
+        _build.ptr(front_mask), V, graph.n_edges,
+        _build.ptr(graph.row_offsets),
         _build.ptr(graph.col_indices), _build.ptr(distances),
         _build.ptr(new_mask), int(iteration) + 1, _build.ptr(scratch),
         _BLOCKS_PER_SM * _build.sm_count(dev), _build.stream(dev),

@@ -48,7 +48,7 @@ _INT_MAX = torch.iinfo(torch.int32).max
 _BLOCKS_PER_SM = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_sssp_push_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "gr_sssp_push_step": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -121,7 +121,8 @@ def sssp_push_step(graph: Graph, front_mask, distances, edge_budget: int):
     scratch = torch.empty(V + 1, dtype=torch.int32, device=dev)
     lib = _build.load("sssp_push", _SIGNATURES)
     err = lib.gr_sssp_push_step(
-        _build.ptr(front_mask), V, _build.ptr(graph.row_offsets),
+        _build.ptr(front_mask), V, graph.n_edges,
+        _build.ptr(graph.row_offsets),
         _build.ptr(graph.col_indices), _build.ptr(graph.values),
         _build.ptr(distances), _build.ptr(new_dist), _build.ptr(improved),
         _build.ptr(scratch), _BLOCKS_PER_SM * _build.sm_count(dev),

@@ -34,16 +34,24 @@ __global__ void push_expand(const int* __restrict__ queue,
                             const int* __restrict__ row_offsets,
                             const int* __restrict__ col_indices,
                             int* __restrict__ dist,
-                            unsigned char* __restrict__ new_mask, int level) {
+                            unsigned char* __restrict__ new_mask, int level,
+                            int n_vertices, int n_edges) {
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * (blockDim.x / 32);
   const int n_front = *count;
   for (int q = (blockIdx.x * blockDim.x + threadIdx.x) / 32; q < n_front;
        q += warps) {
     const int v = queue[q];
+    if (!GR_IN_RANGE(v, n_vertices)) continue;
+    const int begin = row_offsets[v];
     const int end = row_offsets[v + 1];
-    for (int e = row_offsets[v] + lane; e < end; e += 32) {
+    // the range holds edges begin..end-1; an empty row may sit at n_edges
+    if (begin < end && (!GR_IN_RANGE(begin, n_edges) ||
+                        !GR_IN_RANGE(end - 1, n_edges)))
+      continue;
+    for (int e = begin + lane; e < end; e += 32) {
       const int u = col_indices[e];
+      if (!GR_IN_RANGE(u, n_vertices)) continue;
       if (dist[u] == kUnreached &&
           atomicCAS(&dist[u], kUnreached, level) == kUnreached)
         new_mask[u] = 1;
@@ -56,7 +64,7 @@ __global__ void push_expand(const int* __restrict__ queue,
 // scratch: int32[1 + n_vertices] ([count | queue]). new_mask: bool[V];
 // both are cleared here. dist is updated in place.
 extern "C" int gr_bfs_push_step(const void* front, int n_vertices,
-                                const void* row_offsets,
+                                int n_edges, const void* row_offsets,
                                 const void* col_indices, void* dist,
                                 void* new_mask, int level, void* scratch,
                                 int blocks, void* stream) {
@@ -72,6 +80,6 @@ extern "C" int gr_bfs_push_step(const void* front, int n_vertices,
   push_expand<<<blocks, gr::kThreads, 0, s>>>(
       queue, count, static_cast<const int*>(row_offsets),
       static_cast<const int*>(col_indices), static_cast<int*>(dist),
-      static_cast<unsigned char*>(new_mask), level);
-  return cudaGetLastError();
+      static_cast<unsigned char*>(new_mask), level, n_vertices, n_edges);
+  return gr::finish(s);
 }

@@ -28,7 +28,8 @@ namespace {
 
 __global__ void pack_words(const unsigned char* __restrict__ active,
                            const unsigned char* __restrict__ out_mask,
-                           long n_vertices, int window,
+                           long n_vertices, int window, int n_col_blocks,
+                           int n_row_blocks,
                            unsigned* __restrict__ act_words,
                            unsigned* __restrict__ om_words) {
   const int sub = window / 32;
@@ -44,8 +45,8 @@ __global__ void pack_words(const unsigned char* __restrict__ active,
       o = __reduce_or_sync(0xffffffffu, in && out_mask[v] ? bit : 0u);
     if ((threadIdx.x & 31) == 0) {
       const long w = v / window;
-      if (a) atomicOr(&act_words[w], a);
-      if (o) atomicOr(&om_words[w], o);
+      if (a && GR_IN_RANGE(w, n_col_blocks)) atomicOr(&act_words[w], a);
+      if (o && GR_IN_RANGE(w, n_row_blocks)) atomicOr(&om_words[w], o);
     }
   }
 }
@@ -56,19 +57,21 @@ __global__ void test_chunks(const unsigned* __restrict__ act_words,
                             const int* __restrict__ chunk_rb,
                             const unsigned* __restrict__ src_bits,
                             const unsigned* __restrict__ dst_bits,
-                            int n_chunks, bool masked,
+                            int n_chunks, int n_col_blocks,
+                            int n_row_blocks, bool masked,
                             unsigned char* __restrict__ ch_act,
                             int* __restrict__ queue, int* __restrict__ count) {
   const int stride = gridDim.x * blockDim.x;
   for (int base = blockIdx.x * blockDim.x; base < n_chunks; base += stride) {
     const int i = base + threadIdx.x;
     bool act = false;
-    if (i < n_chunks) {
+    if (i < n_chunks && GR_IN_RANGE(chunk_cb[i], n_col_blocks) &&
+        GR_IN_RANGE(chunk_rb[i], n_row_blocks)) {
       act = (act_words[chunk_cb[i]] & src_bits[i]) != 0u;
       if (masked) act = act && (om_words[chunk_rb[i]] & dst_bits[i]) != 0u;
       ch_act[i] = act;
     }
-    gr::warp_append(act, i, queue, count);
+    gr::warp_append(act, i, queue, count, n_chunks);
   }
 }
 
@@ -91,13 +94,14 @@ extern "C" int gr_chunk_activity(const void* active, const void* out_mask,
   pack_words<<<gr::grid_for(n_vertices, 4096), gr::kThreads, 0, s>>>(
       static_cast<const unsigned char*>(active),
       static_cast<const unsigned char*>(out_mask), n_vertices, window,
-      act_words, om_words);
+      n_col_blocks, n_row_blocks, act_words, om_words);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   test_chunks<<<gr::grid_for(n_chunks, 4096), gr::kThreads, 0, s>>>(
       act_words, om_words, static_cast<const int*>(chunk_cb),
       static_cast<const int*>(chunk_rb), static_cast<const unsigned*>(src_bits),
-      static_cast<const unsigned*>(dst_bits), n_chunks, out_mask != nullptr,
-      static_cast<unsigned char*>(ch_act), static_cast<int*>(queue), count);
-  return cudaGetLastError();
+      static_cast<const unsigned*>(dst_bits), n_chunks, n_col_blocks,
+      n_row_blocks, out_mask != nullptr, static_cast<unsigned char*>(ch_act),
+      static_cast<int*>(queue), count);
+  return gr::finish(s);
 }

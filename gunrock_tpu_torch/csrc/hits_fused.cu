@@ -41,16 +41,22 @@ __global__ void hits_fused(int n_chunks, const int* __restrict__ chunk_rb,
                            const float* __restrict__ hub,
                            float* __restrict__ hub_raw,
                            float* __restrict__ auth_raw, int window,
-                           int chunk) {
+                           int chunk, long n_vertices) {
+  const long n_slots = static_cast<long>(n_chunks) * chunk;
   for (int ch = blockIdx.x; ch < n_chunks; ch += gridDim.x) {
     const long rbase = static_cast<long>(chunk_rb[ch]) * window;
     const long cbase = static_cast<long>(chunk_cb[ch]) * window;
     const long sbase = static_cast<long>(ch) * chunk;
     for (int s = threadIdx.x; s < chunk; s += blockDim.x) {
+      if (!GR_IN_RANGE(sbase + s, n_slots)) continue;
       const int r = row_local[sbase + s];
       if (r == window) continue;  // padding slot: skip BOTH sides
       const long src = rbase + r;
       const long dst = cbase + col_local[sbase + s];
+      // both ends of a real slot are vertices: inside auth and hub (V) and
+      // so inside the window-padded outputs
+      if (!GR_IN_RANGE(src, n_vertices) || !GR_IN_RANGE(dst, n_vertices))
+        continue;
       const float a = auth[dst];
       const float h = hub[src];
       if (a != 0.0f) atomicAdd(hub_raw + src, a);
@@ -67,12 +73,14 @@ extern "C" int gr_hits_fused(int blocks, int n_chunks, const void* chunk_rb,
                              const void* chunk_cb, const void* row_local,
                              const void* col_local, const void* auth,
                              const void* hub, void* hub_raw, void* auth_raw,
-                             int window, int chunk, void* stream) {
-  hits_fused<<<blocks, gr::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                             int window, int chunk, int n_vertices,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hits_fused<<<blocks, gr::kThreads, 0, s>>>(
       n_chunks, static_cast<const int*>(chunk_rb),
       static_cast<const int*>(chunk_cb), static_cast<const int*>(row_local),
       static_cast<const int*>(col_local), static_cast<const float*>(auth),
       static_cast<const float*>(hub), static_cast<float*>(hub_raw),
-      static_cast<float*>(auth_raw), window, chunk);
-  return cudaGetLastError();
+      static_cast<float*>(auth_raw), window, chunk, n_vertices);
+  return gr::finish(s);
 }

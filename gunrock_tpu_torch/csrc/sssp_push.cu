@@ -37,17 +37,25 @@ __global__ void relax(const int* __restrict__ queue,
                       const int* __restrict__ col_indices,
                       const float* __restrict__ values,
                       const float* __restrict__ old_dist,
-                      float* __restrict__ new_dist) {
+                      float* __restrict__ new_dist, int n_vertices,
+                      int n_edges) {
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * (blockDim.x / 32);
   const int n_front = *count;
   for (int q = (blockIdx.x * blockDim.x + threadIdx.x) / 32; q < n_front;
        q += warps) {
     const int v = queue[q];
+    if (!GR_IN_RANGE(v, n_vertices)) continue;
     const float dv = old_dist[v];
+    const int begin = row_offsets[v];
     const int end = row_offsets[v + 1];
-    for (int e = row_offsets[v] + lane; e < end; e += 32) {
+    // the range holds edges begin..end-1; an empty row may sit at n_edges
+    if (begin < end && (!GR_IN_RANGE(begin, n_edges) ||
+                        !GR_IN_RANGE(end - 1, n_edges)))
+      continue;
+    for (int e = begin + lane; e < end; e += 32) {
       const int u = col_indices[e];
+      if (!GR_IN_RANGE(u, n_vertices)) continue;
       const float cand = dv + values[e];
       // new_dist only decreases, so a candidate that does not beat the
       // value read now cannot win later
@@ -71,7 +79,7 @@ __global__ void mark_improved(const float* __restrict__ old_dist,
 // scratch: int32[1 + n_vertices] ([count | queue]), cleared here.
 // new_dist: float[V], a copy of old_dist on entry. improved: bool[V].
 extern "C" int gr_sssp_push_step(const void* front, int n_vertices,
-                                 const void* row_offsets,
+                                 int n_edges, const void* row_offsets,
                                  const void* col_indices, const void* values,
                                  const void* old_dist, void* new_dist,
                                  void* improved, void* scratch, int blocks,
@@ -88,12 +96,13 @@ extern "C" int gr_sssp_push_step(const void* front, int n_vertices,
   relax<<<blocks, gr::kThreads, 0, s>>>(
       queue, count, static_cast<const int*>(row_offsets),
       static_cast<const int*>(col_indices), static_cast<const float*>(values),
-      static_cast<const float*>(old_dist), static_cast<float*>(new_dist));
+      static_cast<const float*>(old_dist), static_cast<float*>(new_dist),
+      n_vertices, n_edges);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mark_improved<<<grid_v, gr::kThreads, 0, s>>>(
       static_cast<const float*>(old_dist),
       static_cast<const float*>(new_dist), n_vertices,
       static_cast<unsigned char*>(improved));
-  return cudaGetLastError();
+  return gr::finish(s);
 }

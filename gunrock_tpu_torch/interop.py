@@ -1,5 +1,6 @@
 """pygunrock-style API that fills caller-provided tensors (the BFS, SSSP,
-PageRank, HITS and SpMV part of ``gunrock_tpu/interop.py``).
+PageRank, HITS, SpMV, coloring, MST, k-core and PPR part of
+``gunrock_tpu/interop.py``).
 
 ``bfs``/``sssp(graph, src, distances, predecessors)`` run the search and
 write the results into the given tensors, returning elapsed milliseconds.
@@ -72,6 +73,36 @@ def spmv_run(graph: Graph, x, options: Options | None = None, device=DEFAULT):
     from gunrock_tpu_torch.algorithms import spmv as _spmv
 
     return _spmv.run(graph, x, options=options, device=device)
+
+
+def color_run(graph: Graph, seed: int = 0, options: Options | None = None,
+              strategy: str = "auto", device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import color as _color
+
+    return _color.run(graph, seed=seed, options=options, strategy=strategy,
+                      device=device)
+
+
+def mst_run(graph: Graph, options: Options | None = None,
+            strategy: str = "auto", device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import mst as _mst
+
+    return _mst.run(graph, options=options, strategy=strategy, device=device)
+
+
+def kcore_run(graph: Graph, options: Options | None = None, device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import kcore as _kcore
+
+    return _kcore.run(graph, options=options, device=device)
+
+
+def ppr_run(graph: Graph, seed: int, alpha: float = 0.15,
+            epsilon: float = 1e-6, options: Options | None = None,
+            device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import ppr as _ppr
+
+    return _ppr.run(graph, seed, alpha=alpha, epsilon=epsilon,
+                    options=options, device=device)
 
 
 def bfs_run(graph: Graph, single_source: int, options: Options | None = None,

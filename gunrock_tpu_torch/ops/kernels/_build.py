@@ -9,6 +9,14 @@ starts one ``nvcc`` per missing library, all at once.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 so a run can show that it went through the kernels.
+
+The checked build (``use_checked(True)``, ``build(checked=True)``) compiles
+the same sources with ``-DGR_CHECKED`` into libraries of their own names, so
+both builds cache side by side. In it every index a kernel computes is
+range-checked before use (``GR_IN_RANGE`` in ``csrc/common.cuh``); a bad
+index is recorded instead of dereferenced, each launch synchronises, and
+``check`` raises with the source line, the index and its limit. It stands
+in for a memory checker and is for fault finding only.
 """
 
 from __future__ import annotations
@@ -27,16 +35,26 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("chunkplan", "semiring", "spmm", "bfs_push", "hits_fused",
-           "sssp_push")
+           "sssp_push", "mst_min")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+CHECKED_FLAG = "-DGR_CHECKED"
+RANGE_FAULT = 10001  # gr::kRangeFault: what a checked launch returns
+
 LAUNCHES: collections.Counter = collections.Counter()
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, bool], ctypes.CDLL] = {}
 _lock = threading.Lock()
+_checked = False
+
+
+def use_checked(on: bool) -> None:
+    """Make ``load`` hand out the checked (range-checking) libraries."""
+    global _checked
+    _checked = bool(on)
 
 
 def reset_launches() -> None:
@@ -52,27 +70,31 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, checked: bool = False) -> Path:
     digest = hashlib.sha256()
     for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    tag = "-checked" if checked else ""
+    return BUILD_DIR / f"lib{name}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> float:
-    """Compile every library of ``names`` that is not built yet, with one
-    ``nvcc`` process each, all started together. Returns the seconds spent;
-    raises RuntimeError with the compiler's output if a build fails."""
+def build(names=SOURCES, checked: bool = False) -> float:
+    """Compile every library of ``names`` that is not built yet (the
+    range-checking variants when ``checked``), with one ``nvcc`` process
+    each, all started together. Returns the seconds spent; raises
+    RuntimeError with the compiler's output if a build fails."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = (CHECKED_FLAG,) if checked else ()
     procs = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, checked)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -90,18 +112,23 @@ def build(names=SOURCES) -> float:
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed. ``signatures``
-    maps each exported function to its ctypes argtypes; every function
-    returns a cudaError_t as int."""
+    """The loaded library ``name`` (its checked variant after
+    ``use_checked(True)``), built first if needed. ``signatures`` maps each
+    exported function to its ctypes argtypes; every function returns a
+    cudaError_t as int."""
+    key = (name, _checked)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            build((name,), checked=_checked)
+            lib = ctypes.CDLL(str(library_path(name, _checked)))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+            if _checked:
+                lib.gr_last_fault.argtypes = [ctypes.c_void_p]
+                lib.gr_last_fault.restype = ctypes.c_int
+            _libs[key] = lib
         return lib
 
 
@@ -117,6 +144,15 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
 
 
 def check(err: int, what: str) -> None:
+    if err == RANGE_FAULT:
+        # the checked library that met the fault holds its three words
+        faults = []
+        for (name, checked), lib in _libs.items():
+            words = (ctypes.c_longlong * 3)()
+            if checked and lib.gr_last_fault(words) == 0 and words[0]:
+                faults.append(f"{name}.cu or common.cuh line {words[0]}: "
+                              f"index {words[1]} outside [0, {words[2]})")
+        raise RuntimeError(f"{what}: range check failed: {'; '.join(faults)}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 

@@ -26,7 +26,7 @@ from gunrock_tpu_torch.ops.kernels.layout import BucketedEdges, slot_indices
 _BLOCKS_PER_SM = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_hits_fused": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "gr_hits_fused": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -55,7 +55,7 @@ def hits_fused_pass(layout: BucketedEdges, auth: torch.Tensor,
         blocks, layout.n_chunks, _build.ptr(layout.chunk_rb),
         _build.ptr(layout.chunk_cb), _build.ptr(layout.row_local),
         _build.ptr(layout.col_local), _build.ptr(auth), _build.ptr(hub),
-        _build.ptr(hub_raw), _build.ptr(auth_raw), W, layout.chunk,
+        _build.ptr(hub_raw), _build.ptr(auth_raw), W, layout.chunk, V,
         _build.stream(dev),
     )
     _build.check(err, "hits_fused_pass")

@@ -97,10 +97,12 @@ def _pack_subblock_bits(chunk_ids, local, window: int, n_chunks: int):
 def build_bucketed_layout(rows, cols, values, n_vertices: int,
                           window: int = 512, chunk: int = 1024,
                           pad_value: float = 0.0,
-                          device=DEFAULT) -> BucketedEdges:
+                          device=DEFAULT, return_slots: bool = False):
     """Bucket (row, col, value) edges into the chunked window layout on
     ``device``, building it with numpy on the host. ``pad_value`` fills
-    padding slots' values."""
+    padding slots' values. With ``return_slots`` returns (layout,
+    int64[n_edges] the slot each input edge went to), for a caller that
+    keeps per-edge data of another type beside the layout."""
     device = resolve(device)
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
@@ -147,10 +149,15 @@ def build_bucketed_layout(rows, cols, values, n_vertices: int,
         "dst_bits": _pack_subblock_bits(dest // chunk, rows - rb * window,
                                         window, n_chunks),
     }
-    return BucketedEdges.from_arrays(
+    layout = BucketedEdges.from_arrays(
         data, window=window, chunk=chunk, n_chunks=n_chunks,
         n_row_blocks=n_rb, n_col_blocks=n_cb, n_vertices=n_vertices,
         device=device)
+    if not return_slots:
+        return layout
+    slots = np.empty(rows.size, dtype=np.int64)
+    slots[order] = dest
+    return layout, slots
 
 
 def build_auto_layout(rows, cols, values, n_vertices: int,

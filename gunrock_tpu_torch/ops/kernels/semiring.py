@@ -1,5 +1,5 @@
-"""Semiring pull over the bucketed layout: the frontier-sparse pass and
-the dense pass.
+"""Semiring pull over the bucketed layout: the frontier-sparse pass, the
+dense pass and the fused max/min pass.
 
 Ports of ``gunrock_tpu/ops/pallas/semiring.py``:
 
@@ -7,9 +7,12 @@ Ports of ``gunrock_tpu/ops/pallas/semiring.py``:
   every slot of every ACTIVE chunk (``chunkplan.chunk_activity``);
 - :func:`bucketed_semiring_spmv` (kernels ``_make_kernel_v1..v5``, one
   contract): every slot of every chunk, the dense pass of PageRank, SpMV,
-  symmetric HITS and the non-DO SSSP.
+  symmetric HITS and the non-DO SSSP;
+- :func:`bucketed_semiring_spmv_sparse_minmax` (kernel
+  ``_sparse_minmax_kernel``): coloring's paired neighbour scans, see the
+  function.
 
-Both compute y[row] (+)= msg(x[col], value):
+The first two compute y[row] (+)= msg(x[col], value):
 
 - ``plus_times``  y[r] = sum  val * x[c]         identity 0
 - ``max_times``   y[r] = max  val * x[c]         identity 0
@@ -23,7 +26,8 @@ identity. ``unit=True`` skips the values: msg = x for plus/max, min(x,
 _BIG) for min_plus (the (x)-identity, not weight 1). ``exact`` is accepted
 for the callers and changes nothing: the port computes in f32 throughout.
 
-CUDA source: ``csrc/semiring.cu`` (one kernel template, sparse or dense).
+CUDA source: ``csrc/semiring.cu`` (one kernel template, sparse or dense,
+and the max/min kernel).
 """
 
 from __future__ import annotations
@@ -48,9 +52,12 @@ _BLOCKS_PER_SM = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_spmv_sparse": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                       _P],
-    "gr_spmv_dense": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "gr_spmv_sparse": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _I, _I, _I, _P],
+    "gr_spmv_dense": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _P],
+    "gr_spmv_sparse_minmax": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _P],
 }
 
 
@@ -96,7 +103,8 @@ def bucketed_semiring_spmv(
         _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
         _build.ptr(layout.row_local), _build.ptr(layout.col_local),
         None if unit else _build.ptr(layout.values), _build.ptr(x),
-        _build.ptr(y), W, layout.chunk, _build.stream(dev),
+        _build.ptr(y), W, layout.chunk, V, layout.n_row_blocks,
+        _build.stream(dev),
     )
     _build.check(err, "bucketed_semiring_spmv")
     _build.LAUNCHES["bucketed_semiring_spmv"] += 1
@@ -166,10 +174,12 @@ def bucketed_semiring_spmv_sparse(
     lib = _build.load("semiring", _SIGNATURES)
     err = lib.gr_spmv_sparse(
         sr_id, int(unit), blocks, _build.ptr(queue), _build.ptr(count),
+        layout.n_chunks,
         _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
         _build.ptr(layout.row_local), _build.ptr(layout.col_local),
         None if unit else _build.ptr(layout.values), _build.ptr(x),
-        _build.ptr(y), W, layout.chunk, _build.stream(dev),
+        _build.ptr(y), W, layout.chunk, V, layout.n_row_blocks,
+        _build.stream(dev),
     )
     _build.check(err, "bucketed_semiring_spmv_sparse")
     _build.LAUNCHES["bucketed_semiring_spmv_sparse"] += 1
@@ -192,3 +202,78 @@ def bucketed_semiring_spmv_sparse_plain(
     ch_act, _, _ = chunk_activity_plain(layout, active, out_mask)
     return _reduce(layout, x, semiring, unit,
                    *slot_indices(layout, ch_act))
+
+
+def _check_minmax_inputs(layout: BucketedEdges, x, active, out_mask) -> None:
+    dev, V = layout.device, layout.n_vertices
+    _build.check_tensor(x, "x", torch.float32, (V,), dev)
+    _build.check_tensor(active, "active", torch.bool, (V,), dev)
+    if out_mask is not None:
+        _build.check_tensor(out_mask, "out_mask", torch.bool, (V,), dev)
+
+
+def bucketed_semiring_spmv_sparse_minmax(
+    layout: BucketedEdges,
+    x: torch.Tensor,
+    active: torch.Tensor,
+    out_mask: torch.Tensor | None = None,
+):
+    """(y_max f32[V], y_min f32[V]) over the chunks ``active`` (and
+    ``out_mask``) select: ``y_max[r]`` is the largest and ``y_min[r]`` the
+    smallest POSITIVE message ``value * x[col]`` into row r. A row with no
+    positive message gets ``(0, _BIG)``: ``_BIG`` itself, not inf (the
+    callers test ``y_min < _BIG``). Needs x >= 0 and values >= 0, with 0
+    for an inactive source. With ``out_mask`` only the rows inside it are
+    defined. An edgeless layout gives ``(zeros, full(_BIG))``."""
+    dev = layout.device
+    V = layout.n_vertices
+    _check_minmax_inputs(layout, x, active, out_mask)
+    if layout.n_chunks == 0:
+        return (torch.zeros(V, dtype=torch.float32, device=dev),
+                torch.full((V,), _BIG, dtype=torch.float32, device=dev))
+    if dev.type == "cpu":
+        return bucketed_semiring_spmv_sparse_minmax_plain(
+            layout, x, active, out_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"no semiring kernel for device {dev}")
+    _, queue, count = chunk_activity(layout, active, out_mask)
+    W = layout.window
+    n_pad = layout.n_row_blocks * W
+    ymax = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    ymin = torch.full((n_pad,), _BIG, dtype=torch.float32, device=dev)
+    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
+    lib = _build.load("semiring", _SIGNATURES)
+    err = lib.gr_spmv_sparse_minmax(
+        blocks, _build.ptr(queue), _build.ptr(count), layout.n_chunks,
+        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
+        _build.ptr(layout.row_local), _build.ptr(layout.col_local),
+        _build.ptr(layout.values), _build.ptr(x), _build.ptr(ymax),
+        _build.ptr(ymin), W, layout.chunk, V, layout.n_row_blocks,
+        _build.stream(dev),
+    )
+    _build.check(err, "bucketed_semiring_spmv_sparse_minmax")
+    _build.LAUNCHES["bucketed_semiring_spmv_sparse_minmax"] += 1
+    return ymax[:V], ymin[:V]
+
+
+def bucketed_semiring_spmv_sparse_minmax_plain(
+    layout: BucketedEdges,
+    x: torch.Tensor,
+    active: torch.Tensor,
+    out_mask: torch.Tensor | None = None,
+):
+    """Plain PyTorch version of
+    :func:`bucketed_semiring_spmv_sparse_minmax`."""
+    V = layout.n_vertices
+    n_pad = layout.n_row_blocks * layout.window
+    ymax = torch.zeros(n_pad, dtype=torch.float32, device=x.device)
+    ymin = torch.full((n_pad,), _BIG, dtype=torch.float32, device=x.device)
+    if layout.n_chunks:
+        ch_act, _, _ = chunk_activity_plain(layout, active, out_mask)
+        row, col, slot = slot_indices(layout, ch_act)
+        msg = layout.values[slot] * x[col]
+        ymax.scatter_reduce_(0, row, torch.clamp(msg, min=0.0), reduce="amax",
+                             include_self=True)
+        ymin.scatter_reduce_(0, row, torch.where(msg > 0.0, msg, _BIG),
+                             reduce="amin", include_self=True)
+    return ymax[:V], ymin[:V]

@@ -1,12 +1,21 @@
-"""Bucketed SpMM, Y = A . X (plus_times) for a dense multi-vector X.
+"""Bucketed SpMM, Y = A . X (plus_times) for a dense multi-vector X: the
+dense pass and the frontier-sparse pass.
 
-Port of ``gunrock_tpu/ops/pallas/spmm.py::bucketed_spmm`` (kernel
-``_make_kernel``): Y[rb*W + row_local, k] += values * X[cb*W + col_local, k]
-over every real slot of every chunk; rows no chunk reaches are 0.
+Ports of ``gunrock_tpu/ops/pallas/spmm.py``:
+
+- :func:`bucketed_spmm` (kernel ``_make_kernel``):
+  Y[rb*W + row_local, k] += values * X[cb*W + col_local, k] over every real
+  slot of every chunk; rows no chunk reaches are 0;
+- :func:`bucketed_spmm_sparse` (kernel ``_sparse_kernel``): the same over
+  the chunks that ``active`` (and ``out_mask``) select
+  (``chunkplan.chunk_activity``). Rows no active chunk reaches are 0, so a
+  caller can accumulate the result (``carry += spmm_sparse(delta)``); with
+  ``out_mask`` only the rows inside it are defined.
+
 ``exact`` is accepted for the callers and changes nothing: the port
 computes in f32 throughout, which covers the bf16-exact case.
 
-CUDA source: ``csrc/spmm.cu``.
+CUDA source: ``csrc/spmm.cu`` (one kernel template, dense or queued).
 """
 
 from __future__ import annotations
@@ -16,12 +25,45 @@ import ctypes
 import torch
 
 from gunrock_tpu_torch.ops.kernels import _build
+from gunrock_tpu_torch.ops.kernels.chunkplan import chunk_activity, chunk_activity_plain
 from gunrock_tpu_torch.ops.kernels.layout import BucketedEdges, slot_indices
 
+_BLOCKS_PER_SM = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_spmm": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gr_spmm": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                _P],
 }
+
+
+def _check_x(layout: BucketedEdges, x: torch.Tensor) -> int:
+    if x.dim() != 2:
+        raise ValueError(f"x must be [V, K], got shape {tuple(x.shape)}")
+    K = x.shape[1]
+    _build.check_tensor(x, "x", torch.float32, (layout.n_vertices, K),
+                        layout.device)
+    return K
+
+
+def _launch(layout: BucketedEdges, x: torch.Tensor, K: int, queue, count,
+            what: str) -> torch.Tensor:
+    """Y over the queued chunks (all chunks when ``queue`` is None)."""
+    dev = layout.device
+    V, W = layout.n_vertices, layout.window
+    y = torch.zeros((layout.n_row_blocks * W, K), dtype=torch.float32,
+                    device=dev)
+    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
+    lib = _build.load("spmm", _SIGNATURES)
+    err = lib.gr_spmm(
+        blocks, _build.ptr(queue), _build.ptr(count), layout.n_chunks,
+        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
+        _build.ptr(layout.row_local), _build.ptr(layout.col_local),
+        _build.ptr(layout.values), _build.ptr(x), _build.ptr(y), W,
+        layout.chunk, K, V, layout.n_row_blocks, _build.stream(dev),
+    )
+    _build.check(err, what)
+    _build.LAUNCHES[what] += 1
+    return y[:V]
 
 
 def bucketed_spmm(layout: BucketedEdges, x: torch.Tensor,
@@ -29,37 +71,63 @@ def bucketed_spmm(layout: BucketedEdges, x: torch.Tensor,
     """x: f32[V, K] -> y: f32[V, K]."""
     del exact  # f32 throughout covers the bf16-exact mode
     dev = layout.device
-    V, W = layout.n_vertices, layout.window
-    if x.dim() != 2:
-        raise ValueError(f"x must be [V, K], got shape {tuple(x.shape)}")
-    K = x.shape[1]
-    _build.check_tensor(x, "x", torch.float32, (V, K), dev)
+    K = _check_x(layout, x)
     if layout.n_chunks == 0:
-        return torch.zeros((V, K), dtype=torch.float32, device=dev)
+        return torch.zeros((layout.n_vertices, K), dtype=torch.float32,
+                           device=dev)
     if dev.type == "cpu":
         return bucketed_spmm_plain(layout, x)
     if dev.type != "cuda":
         raise ValueError(f"no SpMM kernel for device {dev}")
-    y = torch.zeros((layout.n_row_blocks * W, K), dtype=torch.float32,
-                    device=dev)
-    lib = _build.load("spmm", _SIGNATURES)
-    err = lib.gr_spmm(
-        layout.n_chunks, _build.ptr(layout.chunk_rb),
-        _build.ptr(layout.chunk_cb), _build.ptr(layout.row_local),
-        _build.ptr(layout.col_local), _build.ptr(layout.values),
-        _build.ptr(x), _build.ptr(y), W, layout.chunk, K, _build.stream(dev),
-    )
-    _build.check(err, "bucketed_spmm")
-    _build.LAUNCHES["bucketed_spmm"] += 1
-    return y[:V]
+    return _launch(layout, x, K, None, None, "bucketed_spmm")
+
+
+def _plain(layout: BucketedEdges, x: torch.Tensor, ch_act) -> torch.Tensor:
+    row, col, slot = slot_indices(layout, ch_act)
+    y = torch.zeros((layout.n_row_blocks * layout.window, x.shape[1]),
+                    dtype=torch.float32, device=x.device)
+    y.index_add_(0, row, x[col] * layout.values[slot, None])
+    return y[: layout.n_vertices]
 
 
 def bucketed_spmm_plain(layout: BucketedEdges, x: torch.Tensor,
                         exact: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`bucketed_spmm`."""
     del exact
-    row, col, slot = slot_indices(layout)
-    y = torch.zeros((layout.n_row_blocks * layout.window, x.shape[1]),
-                    dtype=torch.float32, device=x.device)
-    y.index_add_(0, row, x[col] * layout.values[slot, None])
-    return y[: layout.n_vertices]
+    return _plain(layout, x, None)
+
+
+def bucketed_spmm_sparse(layout: BucketedEdges, x: torch.Tensor,
+                         active: torch.Tensor,
+                         out_mask: torch.Tensor | None = None,
+                         exact: bool = False) -> torch.Tensor:
+    """x: f32[V, K], active (and out_mask): bool[V] -> y: f32[V, K] over the
+    active chunks; rows none of them reaches are 0."""
+    del exact  # f32 throughout covers the bf16-exact mode
+    dev = layout.device
+    V = layout.n_vertices
+    K = _check_x(layout, x)
+    _build.check_tensor(active, "active", torch.bool, (V,), dev)
+    if out_mask is not None:
+        _build.check_tensor(out_mask, "out_mask", torch.bool, (V,), dev)
+    if layout.n_chunks == 0:
+        return torch.zeros((V, K), dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        return bucketed_spmm_sparse_plain(layout, x, active, out_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"no SpMM kernel for device {dev}")
+    _, queue, count = chunk_activity(layout, active, out_mask)
+    return _launch(layout, x, K, queue, count, "bucketed_spmm_sparse")
+
+
+def bucketed_spmm_sparse_plain(layout: BucketedEdges, x: torch.Tensor,
+                               active: torch.Tensor,
+                               out_mask: torch.Tensor | None = None,
+                               exact: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bucketed_spmm_sparse`."""
+    del exact
+    if layout.n_chunks == 0:
+        return torch.zeros((layout.n_vertices, x.shape[1]),
+                           dtype=torch.float32, device=x.device)
+    ch_act, _, _ = chunk_activity_plain(layout, active, out_mask)
+    return _plain(layout, x, ch_act)

@@ -1,12 +1,15 @@
 """The port's kernels (their plain versions, which the CPU runs) against
 the JAX package's Pallas kernels in interpret mode, on one layout built by
 the JAX package and carried across with ``BucketedEdges.from_arrays``:
-the chunk plan, the sparse and dense semiring passes, the SpMM and the
-fused HITS pass.
+the chunk plan, the sparse and dense semiring passes, the fused max/min
+pass, the dense and frontier-sparse SpMM, the fused HITS pass and the
+Boruvka min-cut pass.
 
 Tolerances: the layout, the chunk plan and the max/min semirings are
 compared exactly (same chunks, order-free reductions, identical f32
-message arithmetic). plus_times uses rtol 1e-4: the JAX kernel rebuilds
+message arithmetic). The max/min pass and the min-cut pass are exact too (max/min of products
+of the same f32 factors; a min of integer ranks, the port's in int32 and
+the JAX kernel's in f32, exact below 2^24). plus_times uses rtol 1e-4: the JAX kernel rebuilds
 f32 from a bf16 hi+lo split (semiring.py:321-324, spmm.py:27-30) and the
 port sums in another order. 0/1 inputs give exact integer counts in both.
 """
@@ -30,7 +33,12 @@ from gunrock_tpu.ops.pallas.semiring import (
 from gunrock_tpu.ops.pallas.semiring import (
     bucketed_semiring_spmv_sparse as j_spmv_sparse,
 )
+from gunrock_tpu.ops.pallas.mst_min import bucketed_min_rank_cut as j_min_rank_cut
+from gunrock_tpu.ops.pallas.semiring import (
+    bucketed_semiring_spmv_sparse_minmax as j_minmax,
+)
 from gunrock_tpu.ops.pallas.spmm import bucketed_spmm as j_spmm
+from gunrock_tpu.ops.pallas.spmm import bucketed_spmm_sparse as j_spmm_sparse
 
 from gunrock_tpu_torch.graph import Graph, GraphProperties
 from gunrock_tpu_torch.graph.graph import ARRAYS
@@ -44,11 +52,13 @@ from gunrock_tpu_torch.ops.kernels.layout import (
     build_bucketed_layout,
     dense_window_chunk,
 )
+from gunrock_tpu_torch.ops.kernels.mst_min import NO_CUT, bucketed_min_rank_cut
 from gunrock_tpu_torch.ops.kernels.semiring import (
     bucketed_semiring_spmv,
     bucketed_semiring_spmv_sparse,
+    bucketed_semiring_spmv_sparse_minmax,
 )
-from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
+from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm, bucketed_spmm_sparse
 
 # W=128 (the JAX interpret-mode window), C=128 (v5 needs C % 128 == 0);
 # V=300 is not a multiple of W, so the last window runs past V
@@ -322,3 +332,130 @@ def test_hits_fused_pass_edgeless():
                                         (1 << 20) + 1])
 def test_dense_window_chunk_matches_jax(n_vertices):
     assert dense_window_chunk(n_vertices) == j_dense_window_chunk(n_vertices)
+
+
+# -- the fused max/min pass, the frontier-sparse SpMM, the min-cut pass ----
+
+def _opt(mask):
+    """(jax, torch) forms of an optional bool mask."""
+    if mask is None:
+        return None, None
+    return jnp.asarray(mask), torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_minmax_matches_jax(masked):
+    """B6: exact on the rows that are defined (all rows, or those inside
+    out_mask); a row with no positive message holds _BIG itself."""
+    rng = np.random.default_rng(18)
+    rows, cols, vals = random_edges(19)
+    vals = np.where(rng.random(vals.size) < 0.3, 0.0, vals).astype(np.float32)
+    jl = j_build_layout(rows, cols, vals, V, window=W, chunk=C)
+    active = frontier(20, 0.35)
+    x = np.where(active, rng.random(V) + 0.1, 0.0).astype(np.float32)
+    om = frontier(21, 0.5) if masked else None
+    jom, tom = _opt(om)
+    want = j_minmax(jl, jnp.asarray(x), jnp.asarray(active), interpret=True,
+                    out_mask=jom)
+    got = bucketed_semiring_spmv_sparse_minmax(
+        carry(jl), torch.from_numpy(x), torch.from_numpy(active), out_mask=tom)
+    sel = om if masked else np.ones(V, bool)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy()[sel], np.asarray(w)[sel])
+    ymax, ymin = (g.numpy()[sel] for g in got)
+    none = ymax == 0.0
+    assert none.any() and (~none).any()
+    assert (ymin[none] == np.float32(_BIG)).all()
+    assert (ymin[~none] <= ymax[~none]).all() and (ymin[~none] > 0).all()
+
+
+def test_minmax_edgeless_layout():
+    e = np.zeros(0, np.int32)
+    jl = j_build_layout(e, e, e.astype(np.float32), 50, window=W, chunk=C)
+    x, act = np.ones(50, np.float32), np.ones(50, bool)
+    want = j_minmax(jl, jnp.asarray(x), jnp.asarray(act), interpret=True)
+    got = bucketed_semiring_spmv_sparse_minmax(
+        carry(jl), torch.from_numpy(x), torch.from_numpy(act))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[0] == 0).all() and (got[1] == np.float32(_BIG)).all()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("exact", [True, False])
+def test_spmm_sparse_matches_jax(exact, masked):
+    """B5: signed one-hot deltas over 0/1 values are exact; positive floats
+    within rtol 1e-4 (the JAX kernel's bf16 hi+lo split). Rows no active
+    chunk reaches are 0."""
+    rng = np.random.default_rng(22)
+    rows, cols, vals = random_edges(23)
+    active = frontier(24, 0.1)
+    # every active source sits in the first window: chunks of the other
+    # col windows are skipped, and some rows are reached by none
+    active[W:] = False
+    if exact:
+        vals = (rng.random(vals.size) < 0.5).astype(np.float32)
+        x = rng.integers(-1, 2, (V, 8)).astype(np.float32)
+    else:
+        x = rng.random((V, 8)).astype(np.float32)
+    x = np.where(active[:, None], x, 0.0).astype(np.float32)
+    jl = j_build_layout(rows, cols, vals, V, window=W, chunk=C)
+    om = frontier(25, 0.5) if masked else None
+    jom, tom = _opt(om)
+    want = np.asarray(j_spmm_sparse(
+        jl, jnp.asarray(x), jnp.asarray(active), interpret=True, out_mask=jom,
+        exact=exact))
+    got = bucketed_spmm_sparse(carry(jl), torch.from_numpy(x),
+                               torch.from_numpy(active), out_mask=tom,
+                               exact=exact).numpy()
+    sel = om if masked else np.ones(V, bool)
+    if exact:
+        np.testing.assert_array_equal(got[sel], want[sel])
+        assert (got < 0).any() and (got > 0).any()
+    else:
+        np.testing.assert_allclose(got[sel], want[sel], rtol=1e-4, atol=1e-5)
+    # rows with no edge from an active source: exactly 0, in and out of the
+    # mask (the result is safe to accumulate)
+    reached = np.zeros(V, bool)
+    reached[rows[active[cols]]] = True
+    assert (~reached).any() and (got[~reached] == 0).all()
+
+
+def _rank_layout(seed):
+    """A layout whose values are distinct integer ranks (f32, _BIG padding)
+    and the same ranks as int32 per slot."""
+    rows, cols, _ = random_edges(seed)
+    ranks = np.random.default_rng(seed).permutation(rows.size)
+    jl = j_build_layout(rows, cols, ranks.astype(np.float32), V, window=W,
+                        chunk=C, pad_value=_BIG)
+    tl = carry(jl)
+    pad = tl.row_local == W
+    slot_ranks = torch.where(pad, NO_CUT, tl.values.to(torch.int64)).to(
+        torch.int32)
+    return jl, tl, slot_ranks
+
+
+def test_min_rank_cut_matches_jax():
+    """B7 with random roots: the least rank over each row's cut edges,
+    exact; rows without one hold the sentinel (the JAX kernel's _BIG)."""
+    jl, tl, slot_ranks = _rank_layout(26)
+    roots = np.random.default_rng(27).integers(0, 4, V).astype(np.int32)
+    want = np.asarray(j_min_rank_cut(jl, jnp.asarray(roots, jnp.float32),
+                                     interpret=True))
+    got = bucketed_min_rank_cut(tl, slot_ranks, torch.from_numpy(roots)).numpy()
+    none = want >= np.float32(_BIG)
+    assert none.any() and (~none).any()
+    assert (got[none] == NO_CUT).all()
+    np.testing.assert_array_equal(got[~none], want[~none].astype(np.int32))
+
+
+def test_min_rank_cut_one_component_and_edgeless():
+    _, tl, slot_ranks = _rank_layout(28)
+    one = torch.zeros(V, dtype=torch.int32)
+    assert (bucketed_min_rank_cut(tl, slot_ranks, one) == NO_CUT).all()
+    e = np.zeros(0, np.int32)
+    tl = carry(j_build_layout(e, e, e.astype(np.float32), 50, window=W,
+                              chunk=C, pad_value=_BIG))
+    got = bucketed_min_rank_cut(tl, torch.zeros(0, dtype=torch.int32),
+                                torch.arange(50, dtype=torch.int32))
+    assert got.shape == (50,) and (got == NO_CUT).all()
