@@ -20,6 +20,13 @@ Phases, each raising on failure:
    The frontier family's kernels (fused max/min pass, frontier-sparse
    SpMM, Boruvka min-cut pass) likewise, over the symmetrized coloring
    layouts and the doubled canonical MST layout.
+   The analysis family's kernels (the Weiszfeld step, dense and
+   chunk-skipping, and the banded gather) likewise,
+   over the unit push layout with 10% of the vertices labeled and a real
+   slab of the slabbed triangle count; with them the frontier-sparse
+   semiring pass on every level of a BC search, the SpMM on every
+   backward level of a BC batch, and the frontier-sparse SpMM on a row
+   block of A, as the dense SpGEMM calls it.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
    a. BFS: ``bfs.run`` (direction-optimizing BFS) from the 8
@@ -33,14 +40,23 @@ Phases, each raising on failure:
       checked on the card over all edges), ``mst.run`` (weight and
       components against scipy), ``kcore.run`` (against the CPU oracle),
       ``ppr.run`` from the top-degree vertex and ``ppr.run_batch`` over 8
-      seeds (against the CPU oracle).
-4. CLIs: bfs (twice), sssp, pr, hits, spmv, color, mst, kcore and ppr with
+      seeds (against the CPU oracle);
+   d. the analysis family: ``bc.run`` from the top-degree vertex on both
+      paths and ``bc_batch_kernel`` over 8 and 32 sources (against the
+      float64 Brandes oracle), ``tc.run`` in one sort, in five slabs and
+      by the probe kernel (equal counts, equal to the CPU oracle's),
+      ``spgemm.run`` counting A.A by both strategies and eight row blocks
+      materialized by both (against scipy), ``geo.run`` on the kernel path
+      (the invariants oracle) against the scatter-sum path.
+4. CLIs: bfs (twice), sssp, pr, hits, spmv, color, mst, kcore, ppr, bc
+   (one source, all sources), tc, spgemm (esc, dense) and geo with
    ``--validate``, all started together.
 
 Output: the ``nvidia-smi`` name/power-limit line first, a bench line with
 bench.py's keys, a ``{"semiring_family": ...}`` line, a
-``{"frontier_family": ...}`` line, the seconds of each phase, then the kernel table as one JSON line, and last ``{"ok": true,
-"device": {...}}``. Exits non-zero, printing no result, without a CUDA
+``{"frontier_family": ...}`` line, an ``{"analysis_family": ...}`` line,
+the seconds of each phase, then the kernel table as one JSON line, and
+last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without a CUDA
 device or without the package beside it.
 
 ``edge_shapes_main()`` runs only the build and the edge-shape checks, for
@@ -63,6 +79,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 SCALE, EDGE_FACTOR, SEED, K = 18, 16, 1, 32
+TC_SLABS = 5  # slabs of the slabbed triangle-counting run
 
 
 def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
@@ -507,6 +524,232 @@ def compare_frontier_kernels(torch, graph, layouts, k: int,
     return errs
 
 
+def wstep_inputs(torch, L, gen, labeled_share: float):
+    """(y_lat, y_lon, mlat3, mlon3, ok3) for the Weiszfeld-step kernels
+    over layout ``L``: a ``labeled_share`` of the vertices carry random
+    coordinates, the slot tables are built as ``geo_kernel`` builds them,
+    and the iterate is random except on every 8th row, which sits exactly
+    on one of its labeled neighbours (distance 0: the slot the kernel must
+    not count)."""
+    from gunrock_tpu_torch.algorithms import geo
+    from gunrock_tpu_torch.ops.kernels.layout import slot_indices
+
+    dev, V = L.device, L.n_vertices
+
+    def coords():
+        return (torch.rand(V, device=dev, generator=gen) * 120 - 60,
+                torch.rand(V, device=dev, generator=gen) * 360 - 180)
+
+    labeled = torch.rand(V, device=dev, generator=gen) < labeled_share
+    (lat, lon), (y_lat, y_lon) = coords(), coords()
+    slot_dst, slot_valid = geo.slot_tables(L)
+    ok_slot = slot_valid & labeled[slot_dst]
+    mlat3 = torch.where(ok_slot, lat[slot_dst], 0.0)
+    mlon3 = torch.where(ok_slot, lon[slot_dst], 0.0)
+    if L.n_chunks:
+        row, _, slot = slot_indices(L)
+        keep = ok_slot[slot]
+        best = torch.full((V,), -1, dtype=torch.int64, device=dev)
+        best.scatter_reduce_(0, row[keep], slot[keep], reduce="amax",
+                             include_self=True)
+        on = (best >= 0) & (torch.arange(V, device=dev) % 8 == 0)
+        at = torch.clamp(best, min=0)
+        y_lat = torch.where(on, mlat3[at], y_lat)
+        y_lon = torch.where(on, mlon3[at], y_lon)
+    return y_lat, y_lon, mlat3, mlon3, ok_slot.float()
+
+
+WSTEP_RTOL = 1e-4
+
+
+def wstep_err(torch, what: str, got, want) -> float:
+    """The four sums of a Weiszfeld step, kernel against plain version:
+    the counts equal; the sum of 1/d within rtol 1e-4; the two weighted
+    coordinate sums, whose terms have either sign, within 1e-4 of 90 resp.
+    180 degrees times the sum of 1/d (their terms' magnitude). The kernel
+    uses the card's sinf/cosf/asinf and fused multiply-adds, the plain
+    version torch's; both subtract the same rounded radians, so a distance
+    is 0 in both or in neither. Returns the largest absolute error."""
+    if not torch.equal(got[0], want[0]):
+        i = int(torch.nonzero(got[0] != want[0])[0])
+        raise AssertionError(
+            f"{what}: {int((got[0] != want[0]).sum())} rows count other "
+            f"nonzero distances; row {i}: {float(got[0][i])} vs "
+            f"{float(want[0][i])}, sum 1/d {float(got[1][i])} vs "
+            f"{float(want[1][i])}")
+    worst = 0.0
+    for k, scale in ((1, 1.0), (2, 90.0), (3, 180.0)):
+        diff = (got[k] - want[k]).abs()
+        limit = WSTEP_RTOL * scale * want[1] + 1e-30
+        if bool((diff > limit).any()):
+            i = int(torch.argmax(diff - limit))
+            raise AssertionError(
+                f"{what}: channel {k} row {i}: {float(got[k][i])} vs "
+                f"{float(want[k][i])}, limit {float(limit[i])}")
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    return worst
+
+
+def banded_case(torch, gen, n_table: int, n_blocks: int, block_t: int,
+                span_rows: int, dev):
+    """(table2, idx, block_lo) for the banded gather: a random table
+    padded by ``pad_table``, every block's window at a random row, 90% of
+    its indices inside the window and the rest anywhere in the table or
+    before it (out of window: the kernel must return the clamped
+    element)."""
+    from gunrock_tpu_torch.ops.kernels.banded import pad_table
+
+    table = torch.randint(0, 1 << 30, (n_table,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    table2 = torch.from_numpy(pad_table(table.cpu().numpy(), span_rows)).to(dev)
+    n_rows = -(-n_table // 128)
+    block_lo = torch.randint(0, n_rows, (n_blocks,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    B = n_blocks * block_t
+    inside = torch.randint(0, span_rows * 128, (B,), generator=gen, device=dev)
+    anywhere = torch.randint(-128, table2.numel(), (B,), generator=gen,
+                             device=dev)
+    lo = torch.repeat_interleave(block_lo.long() * 128, block_t)
+    out = torch.rand(B, device=dev, generator=gen) < 0.1
+    idx = torch.where(out, anywhere, lo + inside).int()
+    return table2, idx, block_lo
+
+
+def compare_analysis_kernels(torch, graph, layouts, source: int,
+                             block_rows: tuple, slab=None) -> dict:
+    """The analysis family's kernels against their plain versions; raises
+    on a mismatch. Returns {kernel: max abs error}. ``layouts``: "geo"
+    (the unit push layout), "unit" and "valued" (pull layouts),
+    optionally "empty_row". The two Weiszfeld-step passes by
+    :func:`wstep_err`, with all, 10% and none of the rows still
+    iterating; the banded gather exactly, on random windows with
+    out-of-window indices, and on ``slab`` (a real slab's table,
+    positions and window starts) when given. Also three kernels of the
+    earlier slices at the shapes only this family gives them: the
+    frontier-sparse semiring pass on every level of a BC search from
+    ``source`` (float sigma forward over "unit", dependencies backward
+    over "geo", both level masks: :func:`sum_check`), the SpMM on every
+    backward level of a BC batch from the K top-degree vertices (over
+    "geo": :func:`sum_check`), and the frontier-sparse SpMM as the dense SpGEMM calls it, on one row block of
+    ``block_rows[0]`` rows with unit values (exact) and one of
+    ``block_rows[1]`` rows with the weights (positive terms: rtol 1e-4)."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import bc
+    from gunrock_tpu_torch.ops.kernels import (
+        banded,
+        chunkplan,
+        geo_step,
+        semiring,
+        spmm,
+    )
+
+    dev = graph.device
+    V = graph.n_vertices
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    errs = {}
+
+    def keep(name, e):
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    for key in [k for k in ("geo", "empty_row") if k in layouts]:
+        L = layouts[key]
+        for share in (0.1, 0.6):
+            args = wstep_inputs(torch, L, gen, share)
+            name = "weiszfeld_step_sums"
+            keep(name, wstep_err(torch, f"{name} {key}", *both(
+                torch, geo_step.weiszfeld_step_sums,
+                geo_step.weiszfeld_step_sums_plain, L, *args)))
+            name = "weiszfeld_step_sums_sparse"
+            for p in (1.0, 0.1, 0.0):
+                undone = torch.rand(V, device=dev, generator=gen) < p
+                got, want = both(
+                    torch, geo_step.weiszfeld_step_sums_sparse,
+                    geo_step.weiszfeld_step_sums_sparse_plain, L, *args,
+                    undone)
+                keep(name, wstep_err(torch, f"{name} {key} undone {p}", got,
+                                     want))
+                if p == 0.0 and any(bool(y.any()) for y in got):
+                    raise AssertionError(f"{name} {key}: sums without a row "
+                                         "that iterates")
+
+    name = "banded_gather"
+    cases = [banded_case(torch, gen, 5000, 7, 256, 5, dev) + (256, 5),
+             banded_case(torch, gen, 200_000, 33, 2048, 37, dev) + (2048, 37),
+             banded_case(torch, gen, 300_000, 9, 2048, 120, dev) + (2048, 120)]
+    if slab is not None:
+        cases.append(slab)
+    for table2, idx, block_lo, block_t, span_rows in cases:
+        want = banded.banded_gather_plain(table2, idx, block_lo,
+                                          span_rows=span_rows, block_t=block_t)
+        got = banded.banded_gather(table2, idx, block_lo,
+                                   span_rows=span_rows, block_t=block_t)
+        torch.cuda.synchronize()
+        record(torch, errs, name, got, want, True,
+               f"T={block_t} span_rows={span_rows}")
+
+    # B1 at BC's shape: every level of a search, forward and backward
+    name = "bucketed_semiring_spmv_sparse"
+    labels, sigma, depth = bc.bc_forward(graph, source)
+    sigma_safe = torch.where(sigma > 0, sigma, 1.0)
+    for d in range(depth):
+        front, up = labels == d, labels == d + 1
+        unreached = (labels > d) | (labels == -1)
+        for L, x, act, om in (
+                (layouts["unit"], torch.where(front, sigma, 0.0), front,
+                 unreached),
+                (layouts["geo"], torch.where(up, 1.0 / sigma_safe, 0.0), up,
+                 front)):
+            got, want = both(torch, semiring.bucketed_semiring_spmv_sparse,
+                             semiring.bucketed_semiring_spmv_sparse_plain,
+                             L, x, act, "plus_times", out_mask=om, unit=True)
+            ch_act = chunkplan.chunk_activity_plain(L, act, om)[0]
+            keep(name, sum_check(torch, f"{name} BC level {d}", got,
+                                 *layout_terms(L, x, True, ch_act), want))
+
+    # B4 at the batched BC's backward shape: every level's
+    # (1 + delta) / sigma columns of the top-degree sources, summed over
+    # the push layout
+    name = "bucketed_spmm"
+    deg = np.diff(graph.host["row_offsets"])
+    sources = np.argsort(-deg, kind="stable")[:K]
+    plain_pull, plain_push = bc._segment_advances(graph)
+    columns = []
+
+    def push(x, up, here):
+        columns.append(x)
+        return plain_push(x, up, here)
+
+    bc._backward(*bc._forward(graph, sources, plain_pull), push)
+    for d, x in enumerate(columns):
+        got, want = both(torch, spmm.bucketed_spmm, spmm.bucketed_spmm_plain,
+                         layouts["geo"], x)
+        keep(name, sum_check(
+            torch, f"{name} BC backward pass {d} K={x.shape[1]}", got,
+            *layout_terms(layouts["geo"], x, True), want))
+
+    # B5 at SpGEMM's shape: one row block of A as the columns of X
+    name = "bucketed_spmm_sparse"
+    offs = graph.host["row_offsets"]
+    for n_rows, unit in zip(block_rows, (True, False)):
+        r0 = min(4 * n_rows, (V - 1) // n_rows * n_rows)
+        e0, e1 = int(offs[r0]), int(offs[min(r0 + n_rows, V)])
+        c = graph.col_indices[e0:e1].long()
+        x = torch.zeros((V, n_rows), device=dev)
+        x[c, graph.edge_src[e0:e1].long() - r0] = (
+            1.0 if unit else graph.values[e0:e1])
+        active = torch.zeros(V, dtype=torch.bool, device=dev)
+        active[c] = True
+        got, want = both(torch, spmm.bucketed_spmm_sparse,
+                         spmm.bucketed_spmm_sparse_plain,
+                         layouts["unit" if unit else "valued"], x, active,
+                         exact=unit)
+        keep(name, max_abs_err(
+            torch, got, want, unit, rtol=1e-4,
+            what=f"{name} SpGEMM block K={n_rows} unit={unit}"))
+    return errs
+
+
 def check_edge_shapes(torch, dev) -> None:
     """The kernels at shapes the main path does not have: V = 1000 is no
     multiple of the window (128) or of a warp, so the last window and the
@@ -517,7 +760,13 @@ def check_edge_shapes(torch, dev) -> None:
     from gunrock_tpu_torch.algorithms import color, mst
     from gunrock_tpu_torch.formats import Coo
     from gunrock_tpu_torch.graph import build_graph
-    from gunrock_tpu_torch.ops.kernels import hits_fused, mst_min, semiring, spmm
+    from gunrock_tpu_torch.ops.kernels import (
+        geo_step,
+        hits_fused,
+        mst_min,
+        semiring,
+        spmm,
+    )
     from gunrock_tpu_torch.ops.kernels.layout import (
         build_bucketed_layout,
         pull_layout,
@@ -553,6 +802,12 @@ def check_edge_shapes(torch, dev) -> None:
     errs = compare_kernels(torch, graph, layouts, 5)
     errs.update(compare_family_kernels(torch, graph, layouts, 0))
     errs.update(compare_frontier_kernels(torch, graph, layouts, 5))
+    layouts["geo"] = layouts["hits"]  # the unit push layout at W=128
+    analysis = compare_analysis_kernels(
+        torch, graph, layouts, int(np.argmax(np.diff(graph.host["row_offsets"]))),
+        (64, 32))
+    for name, e in analysis.items():
+        errs[name] = max(errs.get(name, 0.0), e)
     empty = np.zeros(0, np.int32)
     edgeless = layout(empty, empty, empty.astype(np.float32))
     x = torch.ones(V, device=dev)
@@ -574,6 +829,13 @@ def check_edge_shapes(torch, dev) -> None:
     ymax, ymin = semiring.bucketed_semiring_spmv_sparse_minmax(edgeless, x, act)
     if not (bool((ymax == 0).all()) and bool((ymin == semiring._BIG).all())):
         raise AssertionError("edgeless layout: max/min not (0, _BIG)")
+    no_slots = torch.zeros(0, device=dev)
+    for sums in (geo_step.weiszfeld_step_sums(edgeless, x, x, no_slots,
+                                              no_slots, no_slots),
+                 geo_step.weiszfeld_step_sums_sparse(
+                     edgeless, x, x, no_slots, no_slots, no_slots, act)):
+        if any(bool(y.any()) or y.shape != (V,) for y in sums):
+            raise AssertionError("edgeless layout: Weiszfeld sums not 0")
     torch.cuda.synchronize()
     print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
           f"negative values; an empty row window; edgeless): max abs err "
@@ -717,9 +979,16 @@ def check_kernels(torch, graph, layouts):
     frontier_rows, frontier_errs = frontier_kernel_rows(torch, graph, layouts,
                                                        timed)
     rows.update(frontier_rows)
+    analysis_rows, analysis_errs = analysis_kernel_rows(torch, graph, layouts,
+                                                        timed)
+    rows.update(analysis_rows)
     for name in ("bucketed_semiring_spmv_sparse", "bucketed_spmm"):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         frontier_errs[name])
+    for name in ("bucketed_semiring_spmv_sparse", "bucketed_spmm",
+                 "bucketed_spmm_sparse"):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        analysis_errs[name])
     # the device's own busy time per call (ms above is wall time between
     # CUDA events, which the host's launch overhead can set); the push
     # step's includes its 1 MB distance copy
@@ -942,6 +1211,109 @@ def frontier_kernel_rows(torch, graph, layouts, timed) -> tuple:
     return rows, errs
 
 
+def analysis_kernel_rows(torch, graph, layouts, timed) -> tuple:
+    """The analysis family's kernels at the main path's shapes: each held
+    against its plain version (compare_analysis_kernels, with a real
+    triangle-counting slab for the banded gather), then timed beside its
+    plain version, its bound and, for the gather, ``index_select`` on the
+    same indices. Adds each timed call to ``timed``. Returns (rows, the
+    errors of every kernel compare_analysis_kernels held)."""
+    from gunrock_tpu_torch.algorithms import tc
+    from gunrock_tpu_torch.ops.kernels import banded, geo_step
+
+    dev = graph.device
+    V = graph.n_vertices
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    # one real slab of the slabbed sort-join: what the wrapper was given
+    slab = []
+    kernel = tc.banded_gather
+
+    def capture(table2, idx, block_lo, *, span_rows, block_t):
+        if not slab:
+            slab.append((table2, idx, block_lo, block_t, span_rows))
+        return kernel(table2, idx, block_lo, span_rows=span_rows,
+                      block_t=block_t)
+
+    rk = tc.ranked_dag(graph)
+    tc.banded_gather = capture
+    try:
+        tc.run(graph, max_wedges=-(-rk["n_wedges"] // TC_SLABS), warmup=False,
+               device=dev)
+    finally:
+        tc.banded_gather = kernel
+    table2, idx, block_lo, block_t, span_rows = slab[0]
+    errs = compare_analysis_kernels(torch, graph, layouts, 0, (512, 256),
+                                    slab[0])
+    rows = {}
+
+    # B9 on the geo path's first step: 10% of the vertices labeled
+    L = layouts["geo"]
+    n_real = int((L.row_local != L.window).sum())
+    args = wstep_inputs(torch, L, gen, 0.1)
+    n_ok = int(args[4].sum())
+    full = torch.ones(V, dtype=torch.bool, device=dev)
+    n_bytes = 16 * n_real + 4 * L.n_chunks + 8 * V + 16 * V
+    b, by = bound_ms(n_bytes, 30 * n_ok)
+    name = "weiszfeld_step_sums"
+    rows[name] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/geo_step.cu",
+        replaces="gunrock_tpu/ops/pallas/geo_step.py:161",
+        max_abs_err=errs[name],
+        ms=time_ms(torch, timed.setdefault(
+            name, lambda: geo_step.weiszfeld_step_sums(L, *args))),
+        plain_ms=time_ms(torch, lambda: geo_step.weiszfeld_step_sums_plain(
+            L, *args), 5),
+        bound_ms=b, bound_by=by, library_ms=None)
+    b, by = bound_ms(n_bytes + 2 * V + 13 * L.n_chunks, 30 * n_ok)
+    name = "weiszfeld_step_sums_sparse"
+    rows[name] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/geo_step.cu",
+        replaces="gunrock_tpu/ops/pallas/geo_step.py:215",
+        max_abs_err=errs[name],
+        ms=time_ms(torch, timed.setdefault(
+            name, lambda: geo_step.weiszfeld_step_sums_sparse(L, *args,
+                                                              full))),
+        plain_ms=time_ms(
+            torch, lambda: geo_step.weiszfeld_step_sums_sparse_plain(
+                L, *args, full), 5),
+        bound_ms=b, bound_by=by, library_ms=None)
+    tenth = torch.rand(V, device=dev, generator=gen) < 0.1
+    print(f"weiszfeld step: {n_real} slots, {n_ok} labeled; sparse pass "
+          "with 10% / none of the rows iterating, ms:",
+          time_ms(torch, lambda: geo_step.weiszfeld_step_sums_sparse(
+              L, *args, tenth)),
+          time_ms(torch, lambda: geo_step.weiszfeld_step_sums_sparse(
+              L, *args, ~full)))
+
+    # B10 on the captured slab; the library call gathers the same indices
+    flat = table2.view(-1)
+    reach = int(idx.max()) - int(idx.min()) + 1
+    b, by = bound_ms(8 * idx.numel() + 4 * block_lo.numel() + 4 * reach)
+    name = "banded_gather"
+    max_abs_err(torch, banded.banded_gather(table2, idx, block_lo,
+                                            span_rows=span_rows,
+                                            block_t=block_t),
+                flat.index_select(0, idx), True,
+                what="banded_gather vs index_select on a real slab")
+    rows[name] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/banded.cu",
+        replaces="gunrock_tpu/ops/pallas/banded.py:75",
+        max_abs_err=errs[name],
+        ms=time_ms(torch, timed.setdefault(
+            name, lambda: banded.banded_gather(
+                table2, idx, block_lo, span_rows=span_rows,
+                block_t=block_t))),
+        plain_ms=time_ms(torch, lambda: banded.banded_gather_plain(
+            table2, idx, block_lo, span_rows=span_rows, block_t=block_t), 5),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(torch, lambda: flat.index_select(0, idx)),
+        library="torch.index_select (int32 indices)")
+    print(f"banded_gather: slab of {idx.numel()} positions, span_rows "
+          f"{span_rows}, table {flat.numel()}")
+    return rows, errs
+
+
 def frontier_path(torch, graph) -> dict:
     """Phase 3c, the frontier family's main path on the same graph: the
     three coloring strategies, MST, k-core, PPR (one seed, and a batch of
@@ -1102,6 +1474,24 @@ def main_path(torch, graph, layout):
     return bench, per_bfs
 
 
+def close(what, got, want, rtol, atol):
+    """Raise unless got and want (numpy) agree: the same infinities, finite
+    entries within atol + rtol * |want|. Returns the largest difference."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not np.array_equal(np.isinf(got), np.isinf(want)):
+        raise AssertionError(f"{what}: infinities differ at "
+                             f"{np.flatnonzero(np.isinf(got) != np.isinf(want))[:5]}")
+    fin = np.isfinite(want)
+    bad = np.abs(got[fin] - want[fin]) > atol + rtol * np.abs(want[fin])
+    if bad.any():
+        i = np.flatnonzero(fin)[np.flatnonzero(bad)[:5]]
+        raise AssertionError(f"{what}: {int(bad.sum())} entries differ, "
+                             f"first {i}: {got[i]} vs {want[i]}")
+    return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+
+
 def semiring_path(torch, graph) -> dict:
     """Phase 3b, the semiring family's main path on the same graph: SSSP
     (direction-optimizing, 8 top-degree sources; dense min_plus, one
@@ -1118,21 +1508,6 @@ def semiring_path(torch, graph) -> dict:
     deg = np.diff(graph.host["row_offsets"])
     sources = np.argsort(-deg, kind="stable")[:8].tolist()
     out = {}
-
-    def close(what, got, want, rtol, atol):
-        """Raise unless got and want (numpy) agree: the same infinities,
-        finite entries within atol + rtol * |want|."""
-        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-        if not np.array_equal(np.isinf(got), np.isinf(want)):
-            raise AssertionError(f"{what}: infinities differ at "
-                                 f"{np.flatnonzero(np.isinf(got) != np.isinf(want))[:5]}")
-        fin = np.isfinite(want)
-        bad = np.abs(got[fin] - want[fin]) > atol + rtol * np.abs(want[fin])
-        if bad.any():
-            i = np.flatnonzero(fin)[np.flatnonzero(bad)[:5]]
-            raise AssertionError(f"{what}: {int(bad.sum())} entries differ, "
-                                 f"first {i}: {got[i]} vs {want[i]}")
-        return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
 
     # SSSP: distances against Dijkstra, predecessors on a tight in-edge
     sssp.run(graph, sources[0], device=dev)  # warm-up
@@ -1224,6 +1599,194 @@ def semiring_path(torch, graph) -> dict:
     return out
 
 
+def analysis_path(torch, graph, order) -> dict:
+    """Phase 3d, the analysis family's main path on the same graph:
+    betweenness centrality (one source on both paths, a batch of 32),
+    triangle counting (one sort, slabbed, probe), SpGEMM A.A (dense and
+    ESC counts, sampled row blocks materialized) and geolocation (kernel
+    path against the scatter-sum path), each checked. ``order`` maps the
+    graph's vertex ids to the generator's (labels are drawn per input
+    vertex). Returns the summary line's dict."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from gunrock_tpu_torch.algorithms import bc, geo, spgemm, tc
+    from gunrock_tpu_torch.examples import cpu_reference
+    from gunrock_tpu_torch.examples.geo import default_labels
+    from gunrock_tpu_torch.ops.configs import Options
+    from gunrock_tpu_torch.ops.kernels.layout import pull_layout
+
+    dev = graph.device
+    V = graph.n_vertices
+    h = graph.host
+    deg = np.diff(h["row_offsets"])
+    top = np.argsort(-deg, kind="stable")[:K].tolist()
+    out = {}
+
+    # BC: the float64 Brandes oracle holds the kernel path and the plain
+    # path (all terms are positive, so a relative limit holds every vertex)
+    ref = cpu_reference.bc(graph, top[0])
+    res = bc.run(graph, top[0], device=dev)
+    plain = bc.run(graph, top[0], options=Options(), device=dev)
+    depth = bc.bc_forward(graph, top[0])[2]
+    out["bc"] = {
+        "ms": res.elapsed_ms, "plain_ms": plain.elapsed_ms, "depth": depth,
+        "source": top[0],
+        "max_abs_err_vs_cpu": close("bc", res.bc_values.cpu().numpy(), ref,
+                                    1e-4, 1e-5),
+        "plain_max_abs_err_vs_cpu": close(
+            "bc plain", plain.bc_values.cpu().numpy(), ref, 1e-4, 1e-5)}
+    want8 = sum(cpu_reference.bc(graph, s).astype(np.float64)
+                for s in top[:8])
+    got8 = bc.bc_batch_kernel(graph, top[:8])
+    err8 = close("bc batch K=8", got8.cpu().numpy(), want8, 1e-4, 1e-5)
+    bc.bc_batch_kernel(graph, top)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got32 = bc.bc_batch_kernel(graph, top)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got32).all()) or bool((got32 < 0).any()):
+        raise AssertionError("bc batch K=32: not finite and non-negative")
+    out["bc_batch"] = {"ms_k32": (time.perf_counter() - t0) * 1e3,
+                       "k8_max_abs_err_vs_cpu": err8}
+
+    # TC: one sort, slabs, probe: equal per-vertex counts, equal to the
+    # DAG-based CPU oracle's
+    rk = tc.ranked_dag(graph)
+    print(f"tc: {rk['n_wedges']} wedges, {rk['eu'].size} DAG edges, max DAG "
+          f"degree {rk['max_deg']}, span_rows "
+          f"{tc.span_rows_for(rk['max_deg'])}")
+    torch.cuda.reset_peak_memory_stats()
+    one = tc.run(graph, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    slabbed = tc.run(graph, max_wedges=-(-rk["n_wedges"] // TC_SLABS),
+                     device=dev)
+    probe = tc.run(graph, method="probe", device=dev)
+    want = torch.from_numpy(cpu_reference.tc(graph)).to(dev)
+    for what, r in (("one sort", one), ("slabbed", slabbed), ("probe", probe)):
+        if not torch.equal(r.vertex_triangles_count, want):
+            bad = torch.nonzero(r.vertex_triangles_count != want).flatten()
+            raise AssertionError(
+                f"tc {what}: {bad.numel()} vertices differ from the CPU "
+                f"oracle, first {bad[:5].tolist()}")
+    out["tc"] = {"ms": one.elapsed_ms, "slabbed_ms": slabbed.elapsed_ms,
+                 "slabs": TC_SLABS, "probe_ms": probe.elapsed_ms,
+                 "triangles": one.n_triangles, "wedges": rk["n_wedges"],
+                 "one_sort_peak_bytes": peak}
+
+    # SpGEMM C = A.A: structure by both strategies, then sampled row
+    # blocks materialized by both and held against scipy's product
+    products = spgemm.product_count(graph, graph)
+    dense = spgemm.run(graph, graph, strategy="dense", count_only=True,
+                       device=dev)
+    esc = spgemm.run(graph, graph, strategy="esc", count_only=True,
+                     device=dev)
+    if dense.nnz != esc.nnz:
+        raise AssertionError(f"spgemm: dense counts {dense.nnz} nonzeros, "
+                             f"esc {esc.nnz}")
+    closed, streamed = float(dense.values[0]), float(esc.values[0])
+    if abs(streamed - closed) > 1e-3 * abs(closed):
+        raise AssertionError(f"spgemm: esc checksum {streamed} against the "
+                             f"closed form {closed}")
+    A = sp.csr_matrix((h["values"], h["col_indices"], h["row_offsets"]),
+                      shape=(V, V))
+    layout = pull_layout(graph)
+    rows_k = 256
+    starts = h["row_offsets"][: V // rows_k * rows_k + 1: rows_k]
+    nonempty = np.flatnonzero(np.diff(starts) > 0)
+    blocks = nonempty[np.linspace(min(4, nonempty.size - 1),
+                                  nonempty.size - 1, 8).astype(int)].tolist()
+    deg_b = deg.astype(np.int64)
+    worst = 0.0
+    for blk in blocks:
+        r0, r1 = blk * rows_k, (blk + 1) * rows_k
+        e0, e1 = int(h["row_offsets"][r0]), int(h["row_offsets"][r1])
+        want = (A[r0:r1] @ A).tocsr()
+        want.sort_indices()
+        off = np.zeros(e1 - e0 + 1, np.int64)
+        np.cumsum(deg_b[h["col_indices"][e0:e1]], out=off[1:])
+        for what, got in (
+                ("dense", spgemm._dense_block_kernel(layout, graph, e0, e1,
+                                                     r0, rows_k)),
+                ("esc", spgemm._block_kernel(graph, graph, e0, e1, off))):
+            r, c, v = (t.cpu().numpy() for t in got[:3])
+            if not (np.array_equal(r - r0, np.repeat(
+                    np.arange(rows_k), np.diff(want.indptr)))
+                    and np.array_equal(c, want.indices)):
+                raise AssertionError(f"spgemm {what} block {blk}: structure "
+                                     "differs from scipy's")
+            worst = max(worst, close(f"spgemm {what} block {blk}", v,
+                                     want.data, 1e-3, 1e-4))
+    out["spgemm"] = {
+        "products": products, "auto_picks": spgemm.pick_strategy(graph, graph),
+        "nnz": dense.nnz, "dense_count_ms": dense.elapsed_ms,
+        "esc_count_ms": esc.elapsed_ms, "checksum_closed_form": closed,
+        "esc_checksum": streamed, "sampled_blocks": blocks,
+        "sampled_max_abs_err_vs_scipy": worst}
+
+    # geolocation: the CLI's default labels, permuted into execution ids
+    lat, lon = (a[order] for a in default_labels(V))
+    res = geo.run(graph, lat, lon, device=dev)
+    got_lat, got_lon = res.latitude.cpu().numpy(), res.longitude.cpu().numpy()
+    bad = cpu_reference.geo_invariants(graph, lat, lon, got_lat, got_lon)
+    if bad:
+        raise AssertionError(f"geo: {bad} invariant violations")
+    # the scatter-sum path, twice: both paths add in f32 in whatever order
+    # the atomics land, a vertex that converges slowly stops where that
+    # noise lets its step fall under eps, and so two runs of one path
+    # already differ by several 1e-3 degrees on a few dozen vertices. The
+    # JAX package's tolerance between its two paths (rtol 2e-3, atol 2e-3)
+    # is therefore held on all but 1 in 10,000 of the located vertices,
+    # beside the same count between two runs of each path.
+    plain, again = (geo.run(graph, lat, lon, options=Options(), warmup=False,
+                            device=dev) for _ in range(2))
+    located = np.isfinite(got_lat)
+
+    def outside(a, b):
+        """(vertices outside the tolerance, largest difference in degrees,
+        longitudes compared around the circle) of two results."""
+        a_lat, b_lat = (r.latitude.cpu().numpy() for r in (a, b))
+        a_lon, b_lon = (r.longitude.cpu().numpy() for r in (a, b))
+        if not (np.array_equal(located, np.isfinite(a_lat))
+                and np.array_equal(located, np.isfinite(b_lat))):
+            raise AssertionError("geo: two runs locate different vertices")
+        d_lat = np.abs(a_lat - b_lat)[located]
+        d_lon = np.abs((a_lon - b_lon + 180.0) % 360.0 - 180.0)[located]
+        bad = ((d_lat > 2e-3 + 2e-3 * np.abs(b_lat[located]))
+               | (d_lon > 2e-3 + 2e-3 * np.abs(b_lon[located])))
+        return int(bad.sum()), float(max(d_lat.max(), d_lon.max()))
+
+    n_out, diff = outside(res, plain)
+    n_out_plain, diff_plain = outside(again, plain)
+    n_out_kernel, diff_kernel = outside(
+        geo.run(graph, lat, lon, warmup=False, device=dev), res)
+    if n_out * 10_000 > int(located.sum()):
+        raise AssertionError(
+            f"geo: {n_out} of {int(located.sum())} located vertices differ "
+            f"between the kernel path and the scatter-sum path by more than "
+            f"2e-3 + 2e-3 |x| (largest {diff}); two scatter-sum runs: "
+            f"{n_out_plain} (largest {diff_plain}); two kernel-path runs: "
+            f"{n_out_kernel} (largest {diff_kernel})")
+    out["geo"] = {"ms": res.elapsed_ms, "plain_ms": plain.elapsed_ms,
+                  "steps": res.steps, "plain_steps": plain.steps,
+                  "labeled": int(np.isfinite(lat).sum()),
+                  "located": int(located.sum()),
+                  "outside_tolerance_vs_plain_path": n_out,
+                  "max_abs_diff_vs_plain_path": diff,
+                  "outside_tolerance_plain_rerun": n_out_plain,
+                  "max_abs_diff_plain_rerun": diff_plain,
+                  "outside_tolerance_kernel_rerun": n_out_kernel,
+                  "max_abs_diff_kernel_rerun": diff_kernel}
+
+    out["profile"] = {
+        "bc": device_profile(torch, lambda: bc.run(
+            graph, top[0], warmup=False, device=dev)),
+        "geo_2_outer": device_profile(torch, lambda: geo.run(
+            graph, lat, lon, total_iterations=2, warmup=False, device=dev)),
+    }
+    return out
+
+
 def run_clis(argvs: list) -> list:
     """Run the CLIs in subprocesses, all started together; raise unless
     each exits 0. Returns their last lines, in order."""
@@ -1286,8 +1849,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
-    graph, _ = degree_sort(rmat_graph(SCALE, EDGE_FACTOR, seed=SEED))
-    # every layout of the three paths, cached on the graph for the paths
+    graph, reordering = degree_sort(rmat_graph(SCALE, EDGE_FACTOR, seed=SEED))
+    # every layout of the four paths, cached on the graph for the paths
     # to reuse
     dense_w, dense_c = dense_window_chunk(graph.n_vertices)
     layouts = {
@@ -1297,6 +1860,7 @@ def main() -> int:
         "pr": pull_layout(graph, window=dense_w, chunk=dense_c),
         "hits": push_layout(graph, window=dense_w, chunk=dense_c, unit=True),
         "spmv": push_layout(graph, window=2048, chunk=256),
+        "geo": push_layout(graph, unit=True),
         "color": color._color_layout(graph),
         "rank": color._rank_color_layout(graph),
     }
@@ -1370,6 +1934,22 @@ def main() -> int:
     print(json.dumps({"frontier_family": frontier}))
     seconds["frontier_path"] = time.perf_counter() - t0
 
+    analysis_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",
+                        "bucketed_spmm", "bucketed_spmm_sparse",
+                        "weiszfeld_step_sums_sparse", "banded_gather")
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    analysis = analysis_path(torch, graph, reordering.order)
+    launches_analysis = dict(_build.LAUNCHES)
+    missing = [k for k in analysis_kernels if launches_analysis.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"analysis-family path launched no {missing}: "
+                             f"{launches_analysis}")
+    analysis["launches"] = launches_analysis
+    analysis["name_power_limit"] = smi
+    print(json.dumps({"analysis_family": analysis}))
+    seconds["analysis_path"] = time.perf_counter() - t0
+
     # 4. the CLIs, validated against the CPU oracles (chesapeake is
     # symmetric, so the hits CLI takes the symmetric dense pass)
     t0 = time.perf_counter()
@@ -1385,14 +1965,21 @@ def main() -> int:
             ["gunrock_tpu_torch.examples.color"],
             ["gunrock_tpu_torch.examples.mst"],
             ["gunrock_tpu_torch.examples.kcore"],
-            ["gunrock_tpu_torch.examples.ppr", "--src", "0"])]):
+            ["gunrock_tpu_torch.examples.ppr", "--src", "0"],
+            ["gunrock_tpu_torch.examples.bc", "--src", "0"],
+            ["gunrock_tpu_torch.examples.bc", "--all_sources"],
+            ["gunrock_tpu_torch.examples.tc", "-r"],
+            ["gunrock_tpu_torch.examples.spgemm", "--strategy", "esc"],
+            ["gunrock_tpu_torch.examples.spgemm", "--strategy", "dense"],
+            ["gunrock_tpu_torch.examples.geo"])]):
         print(line)
     seconds["clis"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"seconds": seconds}))
 
     table = [{"name": k, "launches": launches_bfs.get(k, 0)
-              + launches_family.get(k, 0) + launches_frontier.get(k, 0), **r}
+              + launches_family.get(k, 0) + launches_frontier.get(k, 0)
+              + launches_analysis.get(k, 0), **r}
              for k, r in rows.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Serial CPU references for ``--validate`` (the BFS, SSSP, PageRank,
-SpMV, HITS, PPR, k-core, coloring and MST oracles of
-``gunrock_tpu/examples/cpu_reference.py``), on the graph's host arrays."""
+"""CPU references for ``--validate`` (the oracles of
+``gunrock_tpu/examples/cpu_reference.py``), on the graph's host arrays,
+vectorized so that they can check an R-MAT scale 18 graph."""
 
 from __future__ import annotations
 
@@ -19,6 +19,13 @@ def _to_scipy(graph):
     )
 
 
+def _out_edges(offs, vertices):
+    """Edge ids of the out-edges of ``vertices``, and how many each has."""
+    degs = offs[vertices + 1] - offs[vertices]
+    first = np.cumsum(degs) - degs
+    return np.repeat(offs[vertices] - first, degs) + np.arange(degs.sum()), degs
+
+
 def bfs(graph, source: int) -> np.ndarray:
     """Hop distances; int32 max where unreachable. Level by level in numpy:
     gather the frontier's out-edges, keep the unvisited targets."""
@@ -29,10 +36,7 @@ def bfs(graph, source: int) -> np.ndarray:
     front = np.asarray([source], dtype=np.int64)
     level = 0
     while front.size:
-        starts, degs = offs[front], offs[front + 1] - offs[front]
-        first = np.cumsum(degs) - degs
-        edges = np.repeat(starts - first, degs) + np.arange(degs.sum())
-        nbrs = np.unique(cols[edges])
+        nbrs = np.unique(cols[_out_edges(offs, front)[0]])
         front = nbrs[dist[nbrs] == UNREACHED]
         level += 1
         dist[front] = level
@@ -111,9 +115,7 @@ def ppr(graph, seed: int, alpha: float = 0.15, epsilon: float = 1e-6,
         p = np.where(front, p + c1 * r, p)
         rp = np.where(front, np.float32(0.0), r)
         f = np.flatnonzero(front)
-        degs = offs[f + 1] - offs[f]
-        first = np.cumsum(degs) - degs
-        edges = np.repeat(offs[f] - first, degs) + np.arange(degs.sum())
+        edges, degs = _out_edges(offs, f)
         push = np.repeat((c2 * r[f] / np.maximum(deg[f], 1.0)).astype(
             np.float32), degs)
         upd = np.bincount(cols[edges], weights=push, minlength=V).astype(
@@ -145,10 +147,7 @@ def kcore(graph) -> np.ndarray:
             continue
         cores[peel] = k
         alive[peel] = False
-        degs = offs[peel + 1] - offs[peel]
-        first = np.cumsum(degs) - degs
-        edges = np.repeat(offs[peel] - first, degs) + np.arange(degs.sum())
-        deg -= np.bincount(cols[edges], minlength=V)
+        deg -= np.bincount(cols[_out_edges(offs, peel)[0]], minlength=V)
     return cores
 
 
@@ -167,3 +166,147 @@ def mst_weight(graph) -> float:
     from scipy.sparse.csgraph import minimum_spanning_tree
 
     return float(minimum_spanning_tree(_to_scipy(graph)).sum())
+
+
+def bc(graph, source: int) -> np.ndarray:
+    """Single-source Brandes dependencies, 0.5-scaled (bc.hxx parity), in
+    float64 level by level: path counts forward, dependencies backward
+    over the edges from each level to the next."""
+    offs = graph.host["row_offsets"].astype(np.int64)
+    cols = graph.host["col_indices"]
+    V = graph.n_vertices
+    sigma = np.zeros(V)
+    dist = np.full(V, -1, np.int64)
+    sigma[source] = 1.0
+    dist[source] = 0
+    levels = [np.asarray([source], dtype=np.int64)]
+    while levels[-1].size:
+        front = levels[-1]
+        edges, degs = _out_edges(offs, front)
+        nbrs = cols[edges]
+        new = np.unique(nbrs[dist[nbrs] < 0])
+        dist[new] = len(levels)
+        onward = dist[nbrs] == len(levels)
+        sigma += np.bincount(nbrs[onward],
+                             weights=np.repeat(sigma[front], degs)[onward],
+                             minlength=V)
+        levels.append(new)
+    delta = np.zeros(V)
+    for d in range(len(levels) - 2, 0, -1):
+        front = levels[d]
+        edges, degs = _out_edges(offs, front)
+        src, dst = np.repeat(front, degs), cols[edges]
+        down = dist[dst] == d + 1
+        src, dst = src[down], dst[down]
+        delta += np.bincount(
+            src, weights=sigma[src] / sigma[dst] * (1 + delta[dst]),
+            minlength=V)
+    delta[source] = 0.0
+    return (0.5 * delta).astype(np.float32)
+
+
+def spgemm(graph_a, graph_b):
+    """C = A . B as a scipy CSR with sorted rows (never densified)."""
+    C = (_to_scipy(graph_a) @ _to_scipy(graph_b)).tocsr()
+    C.sort_indices()
+    return C
+
+
+def spgemm_errors(got, want, rtol: float = 1e-3, atol: float = 1e-4) -> int:
+    """The number of entries of the sparse matrices ``got`` and ``want``
+    that differ by more than ``atol + rtol * |want|`` (an entry missing
+    from one of them counts as 0 there)."""
+    excess = abs(got - want) - rtol * abs(want)
+    return int((excess.data > atol).sum())
+
+
+def tc(graph, block_rows: int = 8192) -> np.ndarray:
+    """Per-vertex triangle membership counts of the undirected simple
+    graph. With L the adjacency of the DAG that points every edge from its
+    lower to its higher (degree, id) endpoint, each triangle u -> v -> w,
+    u -> w is one entry of (L . L) o L at (u, w), which counts it for u
+    (row sums) and w (column sums), and one of (L^T . L) o L at (v, w),
+    which counts it for v (row sums). Both products run in row blocks."""
+    A = (_to_scipy(graph) != 0).astype(np.int64).tocsr()
+    A.setdiag(0)
+    A.eliminate_zeros()
+    A = A.maximum(A.T).tocoo()
+    V = graph.n_vertices
+    deg = np.bincount(A.row, minlength=V)
+    lower = (deg[A.row] < deg[A.col]) | ((deg[A.row] == deg[A.col])
+                                         & (A.row < A.col))
+    import scipy.sparse as sp
+
+    L = sp.csr_matrix((np.ones(int(lower.sum()), np.int64),
+                       (A.row[lower], A.col[lower])), shape=(V, V))
+    Lt = L.T.tocsr()
+    counts = np.zeros(V, np.int64)
+    for r0 in range(0, V, block_rows):
+        rows = slice(r0, min(r0 + block_rows, V))
+        ends = (L[rows] @ L).multiply(L[rows])
+        counts[rows] += np.asarray(ends.sum(axis=1)).ravel()
+        counts += np.asarray(ends.sum(axis=0)).ravel()
+        mids = (Lt[rows] @ L).multiply(L[rows])
+        counts[rows] += np.asarray(mids.sum(axis=1)).ravel()
+    return counts.astype(np.int32)
+
+
+def _midpoint(lat1, lon1, lat2, lon2):
+    """Spherical midpoint in degrees, float64 (reference geo.hxx:71-98)."""
+    lat1, lon1, lat2, lon2 = (np.radians(np.asarray(a, np.float64))
+                              for a in (lat1, lon1, lat2, lon2))
+    bx = np.cos(lat2) * np.cos(lon2 - lon1)
+    by = np.cos(lat2) * np.sin(lon2 - lon1)
+    mlat = np.arctan2(np.sin(lat1) + np.sin(lat2),
+                      np.sqrt((np.cos(lat1) + bx) ** 2 + by ** 2))
+    mlon = lon1 + np.arctan2(by, np.cos(lat1) + bx)
+    return np.degrees(mlat), np.degrees(mlon)
+
+
+def geo_invariants(graph, lat0, lon0, out_lat, out_lon,
+                   atol: float = 1e-2) -> int:
+    """Geolocation invariants (the reference geo example ships no CPU
+    oracle; these are the closed forms of geo.hxx's 1- and 2-neighbor
+    cases plus label preservation). Returns the number of violations:
+
+    1. originally-labeled vertices keep their coordinates,
+    2. predicted coordinates lie in valid (lat, lon) ranges,
+    3. an unlabeled vertex whose ONLY originally-labeled neighbor is v
+       ends at v's coordinates (assigned at iteration 1, stable after),
+    4. exactly two originally-labeled neighbors -> their spherical
+       midpoint, longitudes compared modulo 360.
+    """
+    offs = graph.host["row_offsets"].astype(np.int64)
+    cols = graph.host["col_indices"]
+    V = graph.n_vertices
+    lat0 = np.asarray(lat0, np.float32)
+    lon0 = np.asarray(lon0, np.float32)
+    out_lat = np.asarray(out_lat, np.float32)
+    out_lon = np.asarray(out_lon, np.float32)
+    labeled0 = ~np.isnan(lat0)
+    errors = int((labeled0 & (~np.isclose(out_lat, lat0, atol=atol)
+                              | ~np.isclose(out_lon, lon0, atol=atol))).sum())
+    ok = ~np.isnan(out_lat)
+    errors += int((ok & ((out_lat < -90 - atol) | (out_lat > 90 + atol)
+                         | (out_lon < -180 - atol)
+                         | (out_lon > 180 + atol))).sum())
+    srcs = np.repeat(np.arange(V), np.diff(offs))
+    nb_lab = labeled0[cols]
+    nlab = np.bincount(srcs, weights=nb_lab, minlength=V)
+    # first and last labeled neighbor per source, in edge order
+    at = np.flatnonzero(nb_lab)
+    first = np.full(V, -1, np.int64)
+    first[srcs[at[::-1]]] = cols[at[::-1]]
+    last = np.full(V, -1, np.int64)
+    last[srcs[at]] = cols[at]
+    one = ~labeled0 & (nlab == 1)
+    errors += int((~np.isclose(out_lat[one], lat0[first[one]], atol=atol)
+                   | ~np.isclose(out_lon[one], lon0[first[one]],
+                                 atol=atol)).sum())
+    two = ~labeled0 & (nlab == 2)
+    mla, mlo = _midpoint(lat0[first[two]], lon0[first[two]],
+                         lat0[last[two]], lon0[last[two]])
+    dlon = np.mod(out_lon[two] - mlo + 180.0, 360.0) - 180.0
+    errors += int((~np.isclose(out_lat[two], mla, atol=atol)
+                   | ~(np.abs(dlon) <= atol)).sum())
+    return errors

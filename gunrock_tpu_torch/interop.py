@@ -1,6 +1,5 @@
-"""pygunrock-style API that fills caller-provided tensors (the BFS, SSSP,
-PageRank, HITS, SpMV, coloring, MST, k-core and PPR part of
-``gunrock_tpu/interop.py``).
+"""pygunrock-style API that fills caller-provided tensors (the
+single-device part of ``gunrock_tpu/interop.py``).
 
 ``bfs``/``sssp(graph, src, distances, predecessors)`` run the search and
 write the results into the given tensors, returning elapsed milliseconds.
@@ -103,6 +102,39 @@ def ppr_run(graph: Graph, seed: int, alpha: float = 0.15,
 
     return _ppr.run(graph, seed, alpha=alpha, epsilon=epsilon,
                     options=options, device=device)
+
+
+def bc_run(graph: Graph, single_source: int, options: Options | None = None,
+           device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import bc as _bc
+
+    return _bc.run(graph, single_source, options=options, device=device)
+
+
+def tc_run(graph: Graph, reduce_all_triangles: bool = True,
+           options: Options | None = None, device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import tc as _tc
+
+    return _tc.run(graph, reduce_all_triangles=reduce_all_triangles,
+                   options=options, device=device)
+
+
+def geo_run(graph: Graph, latitude, longitude, total_iterations: int = 3,
+            spatial_iterations: int = 1000, options: Options | None = None,
+            device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import geo as _geo
+
+    return _geo.run(graph, latitude, longitude,
+                    total_iterations=total_iterations,
+                    spatial_iterations=spatial_iterations, options=options,
+                    device=device)
+
+
+def spgemm_run(graph_a: Graph, graph_b: Graph, options: Options | None = None,
+               device=DEFAULT):
+    from gunrock_tpu_torch.algorithms import spgemm as _spgemm
+
+    return _spgemm.run(graph_a, graph_b, options=options, device=device)
 
 
 def bfs_run(graph: Graph, single_source: int, options: Options | None = None,

@@ -36,7 +36,7 @@ class Parameters:
 
 
 # algorithms whose CLI takes --src
-_SOURCED = {"bfs", "sssp", "ppr"}
+_SOURCED = {"bfs", "sssp", "ppr", "bc"}
 
 
 def build_parser(algorithm: str, extra_args=None) -> argparse.ArgumentParser:

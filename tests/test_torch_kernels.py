@@ -459,3 +459,203 @@ def test_min_rank_cut_one_component_and_edgeless():
     got = bucketed_min_rank_cut(tl, torch.zeros(0, dtype=torch.int32),
                                 torch.arange(50, dtype=torch.int32))
     assert got.shape == (50,) and (got == NO_CUT).all()
+
+
+# -- the Weiszfeld step (dense and chunk-skipping) ---------------------------
+# Counts of nonzero distances are equal. The sums hold rtol 1e-4 beside an
+# absolute term of 1e-4 of the row's sum of 1/d times the largest
+# coordinate: the JAX kernel's arcsin is a Cephes polynomial within 2e-6 of
+# torch.asin, it rebuilds f32 sums from a bf16 hi+lo split, and the two
+# coordinate sums have terms of either sign. A row whose iterate lies
+# exactly on a neighbour is the one place the two disagree, see
+# test_weiszfeld_step_zero_distance.
+
+def _wstep_case(seed, labeled_share=0.4, coincident=False):
+    """(JAX layout, port layout, slot arrays and iterate as numpy): the
+    push layout of random edges and slot tables as geo_kernel builds them;
+    with ``coincident`` every 5th row's iterate lies exactly on one of its
+    labeled neighbours (distance 0)."""
+    rng = np.random.default_rng(seed)
+    rows, cols, _ = random_edges(seed)
+    ones = np.ones(rows.size, np.float32)
+    jl = j_build_layout(rows, cols, ones, V, window=W, chunk=C)
+    tl = carry(jl)
+    lat = rng.uniform(-60, 60, V).astype(np.float32)
+    lon = rng.uniform(-180, 180, V).astype(np.float32)
+    labeled = rng.random(V) < labeled_share
+    slot_valid = np.asarray(jl.row_local) != W
+    slot_dst = np.where(
+        slot_valid, np.repeat(np.asarray(jl.chunk_cb), C) * W
+        + np.asarray(jl.col_local), 0)
+    ok = slot_valid & labeled[slot_dst]
+    shape = (jl.n_chunks, C // 128, 128)
+    mlat3 = np.where(ok, lat[slot_dst], 0).astype(np.float32).reshape(shape)
+    mlon3 = np.where(ok, lon[slot_dst], 0).astype(np.float32).reshape(shape)
+    ok3 = ok.astype(np.float32).reshape(shape)
+    y_lat = rng.uniform(-60, 60, V).astype(np.float32)
+    y_lon = rng.uniform(-180, 180, V).astype(np.float32)
+    slot_row = np.repeat(np.asarray(jl.chunk_rb), C) * W + np.asarray(jl.row_local)
+    for s in np.flatnonzero(ok) if coincident else ():
+        r = slot_row[s]
+        if r % 5 == 0:
+            y_lat[r], y_lon[r] = lat[slot_dst[s]], lon[slot_dst[s]]
+    return jl, tl, (y_lat, y_lon, mlat3, mlon3, ok3)
+
+
+def _assert_wstep_close(got, want):
+    got = [g.numpy() for g in got]
+    want = [np.asarray(w) for w in want]
+    np.testing.assert_array_equal(got[0], want[0])
+    assert (want[0] > 0).any()
+    for k, scale in ((1, 1.0), (2, 60.0), (3, 180.0)):
+        np.testing.assert_allclose(
+            got[k], want[k], rtol=1e-4,
+            atol=float(1e-4 * scale * want[1].max()) + 1e-12, err_msg=str(k))
+
+
+def test_weiszfeld_step_sums_matches_jax():
+    from gunrock_tpu.ops.pallas.geo_step import weiszfeld_step_sums as j_wstep
+
+    from gunrock_tpu_torch.ops.kernels.geo_step import weiszfeld_step_sums
+
+    jl, tl, arrays = _wstep_case(11)
+    want = j_wstep(jl, *(jnp.asarray(a) for a in arrays), interpret=True)
+    got = weiszfeld_step_sums(tl, *(torch.from_numpy(a) for a in arrays))
+    _assert_wstep_close(got, want)
+
+
+def test_weiszfeld_step_zero_distance():
+    """A row whose iterate lies exactly on a labeled neighbour: the port's
+    distance is exactly 0 (equal radians subtract to 0) and the slot is
+    not counted, as in the JAX package's eager formula. The jitted JAX
+    kernel on the CPU contracts ``lat2 * rad - lat1 * rad`` into a fused
+    multiply-add, which leaves the product's rounding error: a distance
+    of up to ~7.5e-4 km that it counts. Every other row agrees."""
+    from gunrock_tpu.ops.pallas.geo_step import weiszfeld_step_sums as j_wstep
+
+    from gunrock_tpu_torch.ops.kernels.geo_step import haversine, weiszfeld_step_sums
+
+    jl, tl, arrays = _wstep_case(11, coincident=True)
+    want = j_wstep(jl, *(jnp.asarray(a) for a in arrays), interpret=True)
+    got = weiszfeld_step_sums(tl, *(torch.from_numpy(a) for a in arrays))
+    on = np.arange(V) % 5 == 0
+    _assert_wstep_close([g[~on] for g in got],
+                        [np.asarray(w)[~on] for w in want])
+    labeled_per_row = np.zeros(V)
+    ok = arrays[4].reshape(-1) > 0
+    rows = (np.repeat(np.asarray(jl.chunk_rb), C) * W
+            + np.asarray(jl.row_local))[ok]
+    np.add.at(labeled_per_row, rows, 1)
+    cnt = got[0].numpy()
+    assert (cnt[on] < labeled_per_row[on]).any()
+    np.testing.assert_array_equal(cnt[~on], labeled_per_row[~on])
+    assert (cnt <= np.asarray(want[0])).all()
+    lat = torch.tensor([12.5, -40.25, 59.99])
+    lon = torch.tensor([100.1, -179.9, 0.3])
+    assert (haversine(lat, lon, lat.clone(), lon.clone()) == 0).all()
+
+
+@pytest.mark.parametrize("undone_share", [1.0, 0.1, 0.0])
+def test_weiszfeld_step_sums_sparse_matches_jax(undone_share):
+    from gunrock_tpu.ops.pallas.geo_step import (
+        weiszfeld_step_sums_sparse as j_wstep_sparse,
+    )
+
+    from gunrock_tpu_torch.ops.kernels.geo_step import (
+        weiszfeld_step_sums,
+        weiszfeld_step_sums_sparse,
+    )
+
+    jl, tl, arrays = _wstep_case(12)
+    undone = np.random.default_rng(13).random(V) < undone_share
+    want = j_wstep_sparse(jl, *(jnp.asarray(a) for a in arrays),
+                          jnp.asarray(undone), interpret=True)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    got = weiszfeld_step_sums_sparse(tl, *tensors, torch.from_numpy(undone))
+    if undone_share == 0.0:
+        assert all(not g.any() for g in got)
+        assert all(not np.asarray(w).any() for w in want)
+        return
+    _assert_wstep_close(got, want)
+    # rows that still iterate get the dense pass's sums; rows outside every
+    # touched window are 0
+    dense = weiszfeld_step_sums(tl, *tensors)
+    for g, d in zip(got, dense):
+        np.testing.assert_allclose(g.numpy()[undone], d.numpy()[undone],
+                                   rtol=1e-5)
+    if undone_share < 1.0:
+        touched = np.zeros(tl.n_row_blocks, bool)
+        touched[np.flatnonzero(undone) // W] = True
+        outside = ~np.repeat(touched, W)[:V]
+        assert all(not g.numpy()[outside].any() for g in got)
+
+
+def test_weiszfeld_step_edgeless_and_bad_shapes():
+    from gunrock_tpu_torch.ops.kernels.geo_step import (
+        weiszfeld_step_sums,
+        weiszfeld_step_sums_sparse,
+    )
+
+    empty = np.zeros(0, np.int32)
+    tl = build_bucketed_layout(empty, empty, empty.astype(np.float32), V,
+                               window=W, chunk=C, device="cpu")
+    y = torch.zeros(V)
+    none = torch.zeros(0)
+    for sums in (weiszfeld_step_sums(tl, y, y, none, none, none),
+                 weiszfeld_step_sums_sparse(tl, y, y, none, none, none,
+                                            torch.ones(V, dtype=torch.bool))):
+        assert all(s.shape == (V,) and not s.any() for s in sums)
+    with pytest.raises(ValueError):
+        weiszfeld_step_sums(tl, y, y, torch.zeros(5), none, none)
+    with pytest.raises(ValueError):
+        weiszfeld_step_sums(tl, y[:-1], y, none, none, none)
+
+
+# -- the banded gather -------------------------------------------------------
+
+def test_banded_gather_matches_jax_on_every_element():
+    """In-window indices give table[idx]; out-of-window ones the clamped
+    element, the same one as the JAX kernel: every element is compared."""
+    from gunrock_tpu.ops.pallas.banded import banded_gather as j_banded
+    from gunrock_tpu.ops.pallas.banded import pad_table as j_pad_table
+
+    from gunrock_tpu_torch.ops.kernels.banded import banded_gather, pad_table
+
+    rng = np.random.default_rng(21)
+    span_rows, T, n_blocks = 5, 256, 6
+    table = rng.integers(0, 1 << 30, 3000).astype(np.int32)
+    table2 = pad_table(table, span_rows)
+    np.testing.assert_array_equal(table2, j_pad_table(table, span_rows))
+    block_lo = rng.integers(0, 24, n_blocks).astype(np.int32)
+    lo = np.repeat(block_lo.astype(np.int64) * 128, T)
+    idx = lo + rng.integers(0, span_rows * 128, lo.size)
+    out = rng.random(lo.size) < 0.15
+    idx[out] = rng.integers(-50, table2.size, int(out.sum()))
+    idx = idx.astype(np.int32)
+    want = np.asarray(j_banded(jnp.asarray(table2), jnp.asarray(idx),
+                               jnp.asarray(block_lo), span_rows=span_rows,
+                               block_t=T, interpret=True))
+    got = banded_gather(torch.from_numpy(table2), torch.from_numpy(idx),
+                        torch.from_numpy(block_lo), span_rows=span_rows,
+                        block_t=T).numpy()
+    np.testing.assert_array_equal(got, want)
+    inside = (idx >= lo) & (idx < lo + span_rows * 128)
+    assert (~inside).sum() > 50
+    np.testing.assert_array_equal(got[inside], table2.reshape(-1)[idx[inside]])
+
+
+def test_banded_gather_rejects_bad_shapes():
+    from gunrock_tpu_torch.ops.kernels.banded import banded_gather
+
+    table2 = torch.zeros((8, 128), dtype=torch.int32)
+    idx = torch.zeros(256, dtype=torch.int32)
+    lo = torch.zeros(1, dtype=torch.int32)
+    assert banded_gather(table2, idx, lo, span_rows=2, block_t=256).shape == (256,)
+    with pytest.raises(ValueError):
+        banded_gather(table2, idx[:200], lo, span_rows=2, block_t=256)
+    with pytest.raises(ValueError):
+        banded_gather(table2, idx, lo, span_rows=9, block_t=256)
+    with pytest.raises(ValueError):
+        banded_gather(table2.long(), idx, lo, span_rows=2, block_t=256)
+    with pytest.raises(ValueError):
+        banded_gather(table2.view(-1), idx, lo, span_rows=2, block_t=256)
