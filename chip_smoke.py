@@ -27,6 +27,10 @@ Phases, each raising on failure:
    semiring pass on every level of a BC search, the SpMM on every
    backward level of a BC batch, and the frontier-sparse SpMM on a row
    block of A, as the dense SpGEMM calls it.
+   The probes' kernels likewise: the dense pass's floor modes (stream,
+   gather) on the valued pull layout, the gather at every shape of the two
+   gather probes, the bulk block copy at the dma probe's case and at one
+   x-window per chunk.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
    a. BFS: ``bfs.run`` (direction-optimizing BFS) from the 8
@@ -47,16 +51,26 @@ Phases, each raising on failure:
       by the probe kernel (equal counts, equal to the CPU oracle's),
       ``spgemm.run`` counting A.A by both strategies and eight row blocks
       materialized by both (against scipy), ``geo.run`` on the kernel path
-      (the invariants oracle) against the scatter-sum path.
-4. CLIs: bfs (twice), sssp, pr, hits, spmv, color, mst, kcore, ppr, bc
-   (one source, all sources), tc, spgemm (esc, dense) and geo with
-   ``--validate``, all started together.
+      (the invariants oracle) against the scatter-sum path;
+   e. the measurement path: the four probe drivers
+      (``gunrock_tpu_torch.probes``): the dense pass split into stream,
+      gather and scatter at R-MAT 18, W=2048/C=256 with the card's bound,
+      the gathers (checked against numpy) and their rates, the block copy
+      at the dma probe's case and at one window per chunk, with its rate
+      beside ``x.view(-1, W)[meta].sum()``; each time comes with the
+      device time of a ``torch.profiler`` trace (``utils/trace_stats``).
+4. CLIs: bfs (twice; the first also with ``--export_metrics``, whose JSON
+   is checked: the reference's keys, the card in ``gpuinfo``), sssp, pr,
+   hits, spmv, color, mst, kcore, ppr, bc (one source, all sources), tc,
+   spgemm (esc, dense) and geo with ``--validate``, all started together.
 
 Output: the ``nvidia-smi`` name/power-limit line first, a bench line with
 bench.py's keys, a ``{"semiring_family": ...}`` line, a
-``{"frontier_family": ...}`` line, an ``{"analysis_family": ...}`` line,
-the seconds of each phase, then the kernel table as one JSON line, and
-last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without a CUDA
+``{"frontier_family": ...}`` line, an ``{"analysis_family": ...}`` line
+(each with roofline columns from ``utils/roofline``), the probes' lines
+and a ``{"measurement": ...}`` line, an ``{"export": ...}`` line, the
+seconds of each phase, then the kernel table as one JSON line, and last
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without a CUDA
 device or without the package beside it.
 
 ``edge_shapes_main()`` runs only the build and the edge-shape checks, for
@@ -70,22 +84,30 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+try:  # the bound column (the card's published peaks) and the profiles
+    from gunrock_tpu_torch.utils.roofline import bound_ms, roofline
+    from gunrock_tpu_torch.utils.trace_stats import device_profile
+except ImportError as exc:  # run without the package beside it
+    sys.exit(f"chip_smoke: gunrock_tpu_torch is not beside this script ({exc})")
 
-# the card's published peaks (H100 SXM data sheet), for the bound column
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
 SCALE, EDGE_FACTOR, SEED, K = 18, 16, 1, 32
 TC_SLABS = 5  # slabs of the slabbed triangle-counting run
-
-
-def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+# the keys of the metrics JSON (the reference's schema "2022-10-28", as the
+# JAX package's utils/performance.py writes it)
+EXPORT_KEYS = {
+    "engine", "schema", "primitive", "graph_file", "graph_type",
+    "num_vertices", "num_edges", "process_times", "avg_process_time",
+    "stddev_process_time", "min_process_time", "max_process_time", "mteps",
+    "avg_mteps", "min_mteps", "max_mteps", "edges_visited", "nodes_visited",
+    "search_depths", "avg_search_depth", "min_search_depth",
+    "max_search_depth", "srcs", "tags", "command_line", "git_commit_sha",
+    "compiler", "compiler_version", "gpuinfo", "sysinfo", "time",
+}
 
 
 def time_ms(torch, fn, n: int = 20) -> float:
@@ -120,39 +142,6 @@ def max_abs_err(torch, got, want, exact: bool, rtol: float = 1e-5,
         torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=1e-6,
                                    msg=lambda m: f"{what}: {m}")
     return err
-
-
-def device_profile(torch, fn) -> dict:
-    """One warm call of ``fn`` under torch.profiler: wall time, the device's
-    busy time (the sum of the device-side events' times: kernels, copies,
-    fills; one stream, so no overlap) and its idle share, and the kernels
-    that took the most device time. Host-side ops (``aten::*``) carry
-    their kernels' device time as well and are left out, so nothing is
-    counted twice. The profiler adds host time, so the idle share is an
-    upper bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0.0)
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in events)
-    if busy_us == 0:
-        return {"wall_us": wall_us, "device": "not measured"}
-    top = sorted(events, key=dev_us, reverse=True)[:6]
-    return {"wall_us": wall_us, "busy_us": busy_us,
-            "idle_share": 1 - busy_us / wall_us,
-            "top_us": {e.key[:60]: [dev_us(e), e.count] for e in top}}
 
 
 def record(torch, errs: dict, name: str, got, want, exact: bool,
@@ -808,6 +797,7 @@ def check_edge_shapes(torch, dev) -> None:
         (64, 32))
     for name, e in analysis.items():
         errs[name] = max(errs.get(name, 0.0), e)
+    errs.update(compare_probe_kernels(torch, layouts, dev))
     empty = np.zeros(0, np.int32)
     edgeless = layout(empty, empty, empty.astype(np.float32))
     x = torch.ones(V, device=dev)
@@ -840,6 +830,61 @@ def check_edge_shapes(torch, dev) -> None:
     print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
           f"negative values; an empty row window; edgeless): max abs err "
           f"{errs}")
+
+
+def compare_probe_kernels(torch, layouts, dev) -> dict:
+    """The probes' kernels at edge shapes: the floor modes on the W=128
+    layouts (C=128, half the block idle; a row window no chunk reaches,
+    which must come back 0), relative to the plain version as their sums
+    are ~1e-27; the gather on a 3-D tensor along each axis with another
+    index count on the axis, and flat; the block copy of 3-row blocks with
+    cnt below meta's length, and with cnt 0. Returns {kernel: max abs
+    error}."""
+    import numpy as np
+
+    from gunrock_tpu_torch.ops.kernels import probes
+
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for key in ("valued", "empty_row"):
+        lay = layouts[key]
+        x = torch.rand(lay.n_vertices, device=dev, generator=gen)
+        reached = torch.zeros(lay.n_row_blocks, dtype=torch.bool, device=dev)
+        reached[lay.chunk_rb.long()] = True
+        for mode in ("dma", "gather"):
+            got, want = both(torch, probes.spmv_floor, probes.spmv_floor_plain,
+                             lay, x, mode)
+            g, w = got[reached], want[reached]
+            if (float(((g - w).abs() / w).max()) > 1e-5
+                    or not bool((got[~reached] == 0).all())):
+                raise AssertionError(f"semiring_floor_{mode} on {key}: off by "
+                                     "more than rtol 1e-5, or a row window no "
+                                     "chunk reaches is not 0")
+            name = f"semiring_floor_{mode}"
+            errs[name] = max(errs.get(name, 0.0), float((g - w).abs().max()))
+    xg = torch.randn((3, 5, 7), device=dev, generator=gen)
+    for axis in (0, 1, 2):
+        shape = [3, 5, 7]
+        shape[axis] = 4
+        idx = torch.randint(0, xg.shape[axis], shape, device=dev,
+                            generator=gen, dtype=torch.int32)
+        record(torch, errs, "gather", *both(
+            torch, probes.gather, probes.gather_plain, xg, idx, axis), True,
+            f"axis {axis}")
+    idx = torch.randint(0, xg.numel(), (999,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    record(torch, errs, "gather", *both(
+        torch, probes.gather, probes.gather_plain, xg, idx, None), True, "flat")
+    xb = torch.rand((5, 3, 128), device=dev, generator=gen)
+    meta = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 5, 700).astype(np.int32)).to(dev)
+    meta[-60] = 4  # the last block, inside cnt
+    for n in (650, 0):
+        cnt = torch.tensor([n], dtype=torch.int32, device=dev)
+        got, want = both(torch, probes.block_copy_sum,
+                         probes.block_copy_sum_plain, xb, meta, cnt)
+        record(torch, errs, "block_copy_sum", got, want, False, f"cnt {n}")
+    return errs
 
 
 def edge_shapes_main(checked: bool = False, repeat: int = 1) -> int:
@@ -982,6 +1027,7 @@ def check_kernels(torch, graph, layouts):
     analysis_rows, analysis_errs = analysis_kernel_rows(torch, graph, layouts,
                                                         timed)
     rows.update(analysis_rows)
+    rows.update(probe_kernel_rows(torch, graph, layouts, timed))
     for name in ("bucketed_semiring_spmv_sparse", "bucketed_spmm"):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         frontier_errs[name])
@@ -993,7 +1039,7 @@ def check_kernels(torch, graph, layouts):
     # CUDA events, which the host's launch overhead can set); the push
     # step's includes its 1 MB distance copy
     for name, fn in timed.items():
-        prof = device_profile(torch, lambda: [fn() for _ in range(20)])
+        prof = device_profile(lambda: [fn() for _ in range(20)])
         rows[name]["device_ms"] = (prof["busy_us"] / 20e3 if "busy_us" in prof
                                    else None)
     return rows
@@ -1314,6 +1360,134 @@ def analysis_kernel_rows(torch, graph, layouts, timed) -> tuple:
     return rows, errs
 
 
+def probe_kernel_rows(torch, graph, layouts, timed) -> dict:
+    """The probes' kernels against their plain versions, then timed beside
+    them, their bounds and, where one PyTorch call computes the same
+    function, that call: the floor modes of the dense pass (P1) on the
+    valued W=2048/C=256 pull layout, rtol 1e-5 per reached row block
+    (positive sums, only the order differs) and exact 0 elsewhere; the
+    gather (P2) at every shape of the two gather probes, bit for bit; the
+    block copy (P3) at the dma probe's 4x16 shape within rtol 1e-6 of the
+    float64 sum, and at one x-window per chunk of the unit pull layout
+    within rtol 1e-5. Adds each timed call to ``timed``."""
+    from gunrock_tpu_torch.ops.kernels import probes
+    from gunrock_tpu_torch.probes import dma, gather, gather2, v5_floor
+
+    dev = graph.device
+    V = graph.n_vertices
+    rows = {}
+
+    # P1: the floor modes, at the probe's own layout and first x
+    lay = layouts["valued"]
+    x = v5_floor.probe_inputs(lay, 1)[0]
+    n_real = int((lay.row_local != lay.window).sum())
+    n_y = lay.n_row_blocks * lay.window
+    reached = torch.zeros(lay.n_row_blocks, dtype=torch.bool, device=dev)
+    reached[lay.chunk_rb.long()] = True
+    for mode in ("dma", "gather"):
+        name = f"semiring_floor_{mode}"
+        got, want = both(torch, probes.spmv_floor, probes.spmv_floor_plain,
+                         lay, x, mode)
+        # values ~1e-27: a relative limit, no absolute floor
+        g, w = got[reached], want[reached]
+        rel = float(((g - w).abs() / w).max())
+        if rel > 1e-5 or not (bool((got[~reached] == 0).all())
+                              and bool((w > 0).all())):
+            raise AssertionError(f"{name}: relative error {rel} > 1e-5, or "
+                                 "unreached blocks not 0")
+        err = float((g - w).abs().max())
+        n_bytes = 12 * n_real + 4 * n_y + (4 * V if mode == "gather" else 0)
+        b, by = bound_ms(n_bytes, n_real * (2 if mode == "gather" else 1))
+        rows[name] = dict(
+            route="cuda", source="gunrock_tpu_torch/csrc/semiring.cu",
+            replaces="benchmarks/probe_v5_floor.py:115",
+            max_abs_err=err,
+            ms=time_ms(torch, timed.setdefault(
+                name, lambda mode=mode: probes.spmv_floor(lay, x, mode))),
+            plain_ms=time_ms(torch, lambda mode=mode: probes.spmv_floor_plain(
+                lay, x, mode)),
+            bound_ms=b, bound_by=by, library_ms=None)
+
+    # P2: every gather shape of the two probes, bit for bit; timed at the
+    # [4096, 128] lane gather beside torch.take_along_dim
+    err = 0.0
+    for module in (gather, gather2):
+        for v in module.VARIANTS:
+            xa, ia, axis = module.inputs(v)[:3]
+            xt, it = torch.from_numpy(xa).to(dev), torch.from_numpy(ia).to(dev)
+            got, want = both(torch, probes.gather, probes.gather_plain, xt, it, axis)
+            err = max(err, max_abs_err(torch, got, want, True, what=f"gather {v}"))
+    xa, ia, axis = gather2.inputs("bench")
+    xt, it = torch.from_numpy(xa).to(dev), torch.from_numpy(ia).to(dev)
+    il = it.long()
+    b, by = bound_ms(4 * xa.size + 4 * ia.size + 4 * ia.size)
+    rows["gather"] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/probes.cu",
+        replaces="benchmarks/probe_gather2.py:46",
+        max_abs_err=err,
+        ms=time_ms(torch, timed.setdefault(
+            "gather", lambda: probes.gather(xt, it, axis))),
+        plain_ms=time_ms(torch, lambda: probes.gather_plain(xt, it, axis)),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.take_along_dim(xt, il, dim=axis)))
+
+    # P3: the dma probe's case, then one x-window per chunk
+    xa, meta, cnt = dma.check_inputs()
+    want = sum(float(xa[int(m)].astype("float64").sum()) for m in meta)
+    got = probes.block_copy_sum(*(torch.from_numpy(a).to(dev)
+                                  for a in (xa, meta, cnt)))
+    torch.cuda.synchronize()
+    err = abs(float(got[0, 0, 0]) - want)
+    if err > 1e-6 * want or not bool((got == got[0, 0, 0]).all()):
+        raise AssertionError(f"block_copy_sum 4x16: {float(got[0, 0, 0])} "
+                             f"against {want}")
+    xw, mw, cw = dma.window_inputs(layouts["unit"])
+    got, want = both(torch, probes.block_copy_sum, probes.block_copy_sum_plain,
+                     xw, mw, cw)
+    want64 = float(xw.view(xw.shape[0], -1).double()[mw.long()].sum())
+    for what, t in (("kernel", got), ("plain", want)):
+        if abs(float(t[0, 0, 0]) - want64) > 1e-5 * want64:
+            raise AssertionError(f"block_copy_sum windows, {what}: "
+                                 f"{float(t[0, 0, 0])} against {want64}")
+    err = max(err, abs(float(got[0, 0, 0]) - float(want[0, 0, 0])))
+    b, by = bound_ms(xw.numel() * 4 + mw.numel() * 4 + 4 + xw[0].numel() * 4,
+                     mw.numel() * xw[0].numel())
+    rows["block_copy_sum"] = dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/probes.cu",
+        replaces="benchmarks/probe_dma.py:66",
+        max_abs_err=err,
+        ms=time_ms(torch, timed.setdefault(
+            "block_copy_sum", lambda: probes.block_copy_sum(xw, mw, cw))),
+        plain_ms=time_ms(torch, lambda: probes.block_copy_sum_plain(xw, mw, cw)),
+        bound_ms=b, bound_by=by, library_ms=None)
+    return rows
+
+
+def measurement_path(torch, graph, layouts) -> dict:
+    """Phase 3e, the measurement path: the four probe drivers through
+    their entry points on the same graph, printing each probe's lines:
+    the dense pass split into stream, gather and scatter (20 x draws of
+    the JAX probe), the gathers at both probes' shapes, the block copy at
+    the dma probe's case and at one window per chunk. Returns the summary
+    line's dict."""
+    from gunrock_tpu_torch.probes import dma, gather, gather2, v5_floor
+
+    lay = layouts["valued"]
+    xs = v5_floor.probe_inputs(lay, 20)
+    floor = {v: v5_floor.run_variant(lay, graph.n_edges, v, xs, SCALE)
+             for v in v5_floor.VARIANTS}
+    lines = [*floor.values(), v5_floor.split(lay, floor)]
+    dev = graph.device
+    lines += [gather.run_variant(v, dev) for v in gather.VARIANTS]
+    lines += [gather2.run_variant(v, dev) for v in gather2.VARIANTS]
+    lines += [dma.check(dev), dma.bench(layouts["unit"])]
+    for line in lines:
+        print(json.dumps(line))
+    return {"split": lines[3], "gather_bench": lines[8],
+            "gather2_bench": lines[12], "gather2_bench_sub": lines[13],
+            "dma_bench": lines[-1]}
+
+
 def frontier_path(torch, graph) -> dict:
     """Phase 3c, the frontier family's main path on the same graph: the
     three coloring strategies, MST, k-core, PPR (one seed, and a batch of
@@ -1392,9 +1566,9 @@ def frontier_path(torch, graph) -> dict:
         ppr_err(f"ppr batch seed {s}", p[k], s) for k, s in enumerate(seeds))}
 
     out["profile"] = {
-        "color_greedy": device_profile(torch, lambda: color.run(
+        "color_greedy": device_profile(lambda: color.run(
             graph, strategy="greedy", warmup=False, device=dev)),
-        "mst": device_profile(torch, lambda: mst.run(graph, warmup=False,
+        "mst": device_profile(lambda: mst.run(graph, warmup=False,
                                                      device=dev)),
     }
     return out
@@ -1450,9 +1624,9 @@ def main_path(torch, graph, layout):
                                  "from single-source BFS")
         bedges += int(deg[bdist[:, k] != UNREACHED].sum())
     profiles = {
-        "bfs": device_profile(torch, lambda: bfs.run(
+        "bfs": device_profile(lambda: bfs.run(
             graph, sources[0], warmup=False, device=graph.device)),
-        "msbfs_k32": device_profile(torch, lambda: bfs.msbfs_kernel(
+        "msbfs_k32": device_profile(lambda: bfs.msbfs_kernel(
             graph, batch, pull_layout=layout)),
     }
     print(json.dumps({"profile": profiles}))
@@ -1591,9 +1765,9 @@ def semiring_path(torch, graph) -> dict:
     out["spmv"] = {"ms": res.elapsed_ms, "max_abs_err_vs_f64": err}
 
     out["profile"] = {
-        "sssp": device_profile(torch, lambda: sssp.run(
+        "sssp": device_profile(lambda: sssp.run(
             graph, sources[0], warmup=False, device=dev)),
-        "pr": device_profile(torch, lambda: pr.run(graph, warmup=False,
+        "pr": device_profile(lambda: pr.run(graph, warmup=False,
                                                    device=dev)),
     }
     return out
@@ -1779,12 +1953,71 @@ def analysis_path(torch, graph, order) -> dict:
                   "max_abs_diff_kernel_rerun": diff_kernel}
 
     out["profile"] = {
-        "bc": device_profile(torch, lambda: bc.run(
+        "bc": device_profile(lambda: bc.run(
             graph, top[0], warmup=False, device=dev)),
-        "geo_2_outer": device_profile(torch, lambda: geo.run(
+        "geo_2_outer": device_profile(lambda: geo.run(
             graph, lat, lon, total_iterations=2, warmup=False, device=dev)),
     }
     return out
+
+
+def roof(graph, algo: str, ms: float, edges_visited: int = 0, **extra) -> dict:
+    """The roofline columns of one run (``utils/roofline``): modelled
+    bytes, their rate and its share of the card's memory rate, with the
+    card's name and power limit."""
+    return roofline(algo, graph.n_vertices, graph.n_edges, int(edges_visited),
+                    ms, extra, device=graph.device)
+
+
+def family_rooflines(graph, family: str, out: dict) -> dict:
+    """Roofline columns for each algorithm of a family's summary line.
+    Frontier and analysis algorithms count one pass over the edges per
+    round (the JAX CLIs report no workload for them); SpGEMM counts its
+    partial products."""
+    E = graph.n_edges
+    if family == "semiring":
+        s = out["sssp"]
+        return {
+            "sssp": roof(graph, "sssp", s["avg_ms"], s["mteps"] * s["avg_ms"] * 1e3,
+                         search_depth=max(s["depths"])),
+            "pr": roof(graph, "pr", out["pr"]["ms"], E * out["pr"]["iterations"],
+                       iterations=out["pr"]["iterations"]),
+            "hits": roof(graph, "hits", out["hits"]["ms"],
+                         E * out["hits"]["iterations"],
+                         iterations=out["hits"]["iterations"]),
+            "spmv": roof(graph, "spmv", out["spmv"]["ms"], E)}
+    if family == "frontier":
+        return {
+            "color_greedy": roof(graph, "color", out["color_greedy"]["ms"],
+                                 E * out["color_greedy"]["iterations"]),
+            "mst": roof(graph, "mst", out["mst"]["ms"], E * out["mst"]["rounds"]),
+            "kcore": roof(graph, "kcore", out["kcore"]["ms"],
+                          E * out["kcore"]["rounds"]),
+            "ppr": roof(graph, "ppr", out["ppr"]["ms"], E * out["ppr"]["iterations"])}
+    steps = sum(out["geo"]["steps"])
+    return {
+        "bc": roof(graph, "bc", out["bc"]["ms"]),
+        "tc": roof(graph, "tc", out["tc"]["ms"], E),
+        "spgemm_esc": roof(graph, "spgemm", out["spgemm"]["esc_count_ms"],
+                           out["spgemm"]["products"]),
+        "geo": roof(graph, "geo", out["geo"]["ms"], E * steps, iterations=steps)}
+
+
+def check_export(path: Path, name: str) -> dict:
+    """The bfs CLI's metrics JSON: the reference's key set and schema, the
+    card named in gpuinfo, mteps from the recorded times."""
+    out = json.loads(path.read_text())
+    if set(out) != EXPORT_KEYS or out["schema"] != "2022-10-28":
+        raise AssertionError(f"metrics JSON: keys {sorted(set(out) ^ EXPORT_KEYS)} "
+                             f"differ, schema {out.get('schema')}")
+    if out["gpuinfo"]["name"] != name or out["tags"] != ["smoke"]:
+        raise AssertionError(f"metrics JSON: gpuinfo {out['gpuinfo']}, tags "
+                             f"{out['tags']}")
+    if out["mteps"] != [out["edges_visited"] / t / 1000
+                        for t in out["process_times"]]:
+        raise AssertionError("metrics JSON: mteps is not edges / time")
+    return {k: out[k] for k in ("primitive", "edges_visited", "nodes_visited",
+                                "search_depths", "srcs", "avg_mteps", "gpuinfo")}
 
 
 def run_clis(argvs: list) -> list:
@@ -1899,6 +2132,9 @@ def main() -> int:
         raise AssertionError(f"BFS path launched no {missing}: {launches_bfs}")
     bench["device"] = name
     bench["name_power_limit"] = smi
+    bench["roofline"] = roof(graph, "bfs", bench["avg_ms"],
+                             bench["value"] * bench["avg_ms"] * 1e3,
+                             search_depth=max(bench["depths"]))
     bench["launches"] = launches_bfs
     bench["launches_per_bfs"] = per_bfs
     print(json.dumps(bench))
@@ -1913,6 +2149,7 @@ def main() -> int:
         raise AssertionError(f"semiring-family path launched no {missing}: "
                              f"{launches_family}")
     family["launches"] = launches_family
+    family["roofline"] = family_rooflines(graph, "semiring", family)
     family["sum_check_limit_share"] = LIMIT_SHARE["max"]
     family["name_power_limit"] = smi
     print(json.dumps({"semiring_family": family}))
@@ -1930,6 +2167,7 @@ def main() -> int:
         raise AssertionError(f"frontier-family path launched no {missing}: "
                              f"{launches_frontier}")
     frontier["launches"] = launches_frontier
+    frontier["roofline"] = family_rooflines(graph, "frontier", frontier)
     frontier["name_power_limit"] = smi
     print(json.dumps({"frontier_family": frontier}))
     seconds["frontier_path"] = time.perf_counter() - t0
@@ -1946,16 +2184,34 @@ def main() -> int:
         raise AssertionError(f"analysis-family path launched no {missing}: "
                              f"{launches_analysis}")
     analysis["launches"] = launches_analysis
+    analysis["roofline"] = family_rooflines(graph, "analysis", analysis)
     analysis["name_power_limit"] = smi
     print(json.dumps({"analysis_family": analysis}))
     seconds["analysis_path"] = time.perf_counter() - t0
+
+    measure_kernels = ("semiring_floor_dma", "semiring_floor_gather",
+                       "bucketed_semiring_spmv", "gather", "block_copy_sum")
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    measure = measurement_path(torch, graph, layouts)
+    launches_measure = dict(_build.LAUNCHES)
+    missing = [k for k in measure_kernels if launches_measure.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"measurement path launched no {missing}: "
+                             f"{launches_measure}")
+    measure["launches"] = launches_measure
+    measure["name_power_limit"] = smi
+    print(json.dumps({"measurement": measure}))
+    seconds["measurement_path"] = time.perf_counter() - t0
 
     # 4. the CLIs, validated against the CPU oracles (chesapeake is
     # symmetric, so the hits CLI takes the symmetric dense pass)
     t0 = time.perf_counter()
     market = ["--market", "datasets/chesapeake.mtx", "--validate"]
+    export_dir = tempfile.TemporaryDirectory()
     for line in run_clis([argv + market for argv in (
-            ["gunrock_tpu_torch.examples.bfs", "--src", "0"],
+            ["gunrock_tpu_torch.examples.bfs", "--src", "0", "--export_metrics",
+             "-d", export_dir.name, "-f", "out.json", "-t", "smoke"],
             ["gunrock_tpu_torch.examples.bfs", "--src", "0",
              "--reorder", "degree"],
             ["gunrock_tpu_torch.examples.sssp", "--src", "0"],
@@ -1973,13 +2229,16 @@ def main() -> int:
             ["gunrock_tpu_torch.examples.spgemm", "--strategy", "dense"],
             ["gunrock_tpu_torch.examples.geo"])]):
         print(line)
+    print(json.dumps({"export": check_export(Path(export_dir.name) / "out.json",
+                                             name)}))
+    export_dir.cleanup()
     seconds["clis"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"seconds": seconds}))
 
     table = [{"name": k, "launches": launches_bfs.get(k, 0)
               + launches_family.get(k, 0) + launches_frontier.get(k, 0)
-              + launches_analysis.get(k, 0), **r}
+              + launches_analysis.get(k, 0) + launches_measure.get(k, 0), **r}
              for k, r in rows.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

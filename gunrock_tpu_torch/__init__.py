@@ -16,11 +16,16 @@ Layout (mirrors ``gunrock_tpu``):
 - ``ops.kernels`` — the bucketed layout and the CUDA kernels with their
                     plain versions
 - ``ops``         — sorted-segment sums, sorts, operator options
-- ``framework``   — the Enactor/Problem loop
+- ``framework``   — the Enactor/Problem loop, workload counters
 - ``algorithms``  — BFS (direction-optimizing, multi-source), SSSP,
                     PageRank, HITS, SpMV, graph coloring, minimum spanning
-                    tree, k-core, personalized PageRank
+                    tree, k-core, personalized PageRank, betweenness
+                    centrality, SpGEMM, triangle counting, geolocation
 - ``examples``    — the CLIs and their CPU oracles
+- ``device``      — the device rule and the card's properties and peaks
+- ``utils``       — comparison, timers, roofline, profiler traces and
+                    their per-op stats, the metrics JSON export
+- ``probes``      — drivers of the TPU probes' Hopper kernels
 """
 
 __version__ = "0.1.0"

@@ -112,6 +112,21 @@ __global__ void compact_frontier(const unsigned char* __restrict__ front,
   }
 }
 
+// The sum of `v` over the calling block (at most 1024 threads, a whole
+// number of warps), returned to every thread. `scratch` is 32 floats of
+// shared memory; the call synchronises the block twice, so every thread
+// must make it.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += scratch[w];
+  __syncthreads();  // scratch may be written again after this
+  return s;
+}
+
 // Grid of `kThreads`-thread blocks covering `n` items, at most `cap` blocks
 // (the kernels loop with a grid stride past that).
 inline int grid_for(long n, int cap) {

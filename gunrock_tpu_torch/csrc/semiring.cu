@@ -1,5 +1,5 @@
 // Semiring pull over the bucketed chunk layout: the frontier-sparse pass,
-// the dense pass and the fused max/min pass.
+// the dense pass with its two floor modes, and the fused max/min pass.
 //
 // Replaces:
 // - gunrock_tpu/ops/pallas/semiring.py::bucketed_semiring_spmv_sparse
@@ -11,7 +11,9 @@
 // - gunrock_tpu/ops/pallas/semiring.py::bucketed_semiring_spmv_sparse_minmax
 //   (kernel body _sparse_minmax_kernel: one windowed one-hot gather feeding
 //   a max-reduce and a positives-only min-reduce, for coloring's paired
-//   neighbour scans).
+//   neighbour scans);
+// - benchmarks/probe_v5_floor.py::run_variant (the pallas_call at :115,
+//   variants `dma` and `gather`): the floor modes of the dense pass below.
 //
 // Contract: for every chunk in `queue[0:*count]` (sparse: the active
 // chunks from chunkplan.cu) or every chunk 0..n_chunks-1 (dense), and
@@ -52,14 +54,36 @@
 // gathers, bf16 hi/lo splits, [Cr,128] metadata tiles, first-visit init
 // and rb_occupied mask have no counterpart: Hopper gathers and reduces
 // natively, and y starts at the identity.
+//
+// Floor modes (gr_spmv_dense_floor): the dense plus_times pass with the
+// same grid, loop and loads, less the per-slot scatter (kGather) or less
+// the gather too (kStream), so that the times of the three differ by the
+// gather and the scatter alone. Contract of the TPU probe: per row block
+// rb, y[rb*W + r] = 1e-30 * sum over the chunks of rb of t, for every r of
+// the block, with t = sum of val * x[col] (kGather) or sum of val
+// (kStream) over the chunk's real slots; blocks no chunk reaches are 0.
+// kStream keeps the row and col loads by handing both to an empty asm
+// (the TPU probe folds them in at weight 0). The block sums a chunk's t and
+// stores it, one plain store per chunk, in t_chunk[ch]; a second pass
+// (floor_fill, one block per row block) sums the t of its chunks, found by
+// binary search in chunk_rb (chunks are sorted by row block, as
+// build_bucketed_layout makes them), and writes all W entries of y. No
+// atomics: with one atomicAdd per warp into its row block instead, the
+// stream mode took 0.217 ms of device time (R-MAT 18, W=2048/C=256, an
+// H100 80GB HBM3 at 700 W), as long as the full pass, where the stores
+// take 0.035: on a degree-sorted graph most chunks share the hub row
+// blocks, and atomics on one address serialize. Broadcasting t into y per chunk would write W floats
+// per chunk (~42M at R-MAT 18), more than the real scatter, and spoil the
+// floor. Bound: the real slots' 12 B plus x and y, as the full pass.
 
 #include "common.cuh"
 
 namespace {
 
 enum Semiring { kPlusTimes = 0, kMinPlus = 1, kMaxTimes = 2 };
+enum Mode { kFull = 0, kGather = 1, kStream = 2 };
 
-template <int kSemiring, bool kUnit, bool kDense>
+template <int kSemiring, bool kUnit, bool kDense, int kMode = kFull>
 __global__ void spmv_pull(const int* __restrict__ queue,
                           const int* __restrict__ count, int n_chunks,
                           const int* __restrict__ chunk_rb,
@@ -68,7 +92,9 @@ __global__ void spmv_pull(const int* __restrict__ queue,
                           const int* __restrict__ col_local,
                           const float* __restrict__ values,
                           const float* __restrict__ x, float* __restrict__ y,
+                          float* __restrict__ t_chunk,
                           int window, int chunk, long n_x, long n_y) {
+  __shared__ float warp_t[32];  // floor modes: the block's sum of a chunk
   const int n_work = kDense ? n_chunks : *count;
   const long n_slots = static_cast<long>(n_chunks) * chunk;
   for (int q = blockIdx.x; q < n_work; q += gridDim.x) {
@@ -77,13 +103,24 @@ __global__ void spmv_pull(const int* __restrict__ queue,
     const long xbase = static_cast<long>(chunk_cb[ch]) * window;
     const long ybase = static_cast<long>(chunk_rb[ch]) * window;
     const long sbase = static_cast<long>(ch) * chunk;
+    float t = 0.0f;  // floor modes: this thread's share of the chunk's sum
     for (int s = threadIdx.x; s < chunk; s += blockDim.x) {
       if (!GR_IN_RANGE(sbase + s, n_slots)) continue;
       const int r = row_local[sbase + s];
       if (r == window) continue;  // padding slot
-      const long xi = xbase + col_local[sbase + s];
+      const int c = col_local[sbase + s];
+      const long xi = xbase + c;
       if (!GR_IN_RANGE(xi, n_x) || !GR_IN_RANGE(ybase + r, n_y)) continue;
+      if (kMode == kStream) {
+        asm volatile("" ::"r"(r), "r"(c));  // keep both loads
+        t += values[sbase + s];
+        continue;
+      }
       const float xv = x[xi];
+      if (kMode == kGather) {
+        t += values[sbase + s] * xv;
+        continue;
+      }
       float* dst = y + ybase + r;
       if (kSemiring == kPlusTimes) {
         const float m = kUnit ? xv : values[sbase + s] * xv;
@@ -97,7 +134,37 @@ __global__ void spmv_pull(const int* __restrict__ queue,
         if (m < gr::kBig) gr::atomic_min_float(dst, m);
       }
     }
+    if (kMode != kFull) {  // every thread gets here: the bounds are uniform
+      t = gr::block_sum(t, warp_t);
+      if (threadIdx.x == 0) t_chunk[ch] = t;
+    }
   }
+}
+
+// Floor modes' second pass, one block per row block rb: the sum of t_chunk
+// over rb's chunks (a contiguous range of the sorted chunk_rb), times
+// 1e-30, into all W entries of y's block rb; 0 where no chunk reaches rb.
+__global__ void floor_fill(const int* __restrict__ chunk_rb, int n_chunks,
+                           const float* __restrict__ t_chunk,
+                           float* __restrict__ y, int window) {
+  __shared__ float warp_t[32];
+  const int rb = blockIdx.x;
+  int lo = 0, hi = n_chunks;  // first chunk with chunk_rb >= rb
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (chunk_rb[mid] < rb) lo = mid + 1; else hi = mid;
+  }
+  const int first = lo;
+  hi = n_chunks;  // first chunk with chunk_rb > rb
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (chunk_rb[mid] <= rb) lo = mid + 1; else hi = mid;
+  }
+  float t = 0.0f;
+  for (int ch = first + threadIdx.x; ch < lo; ch += blockDim.x) t += t_chunk[ch];
+  const float v = gr::block_sum(t, warp_t) * 1e-30f;  // in every thread
+  float* yb = y + static_cast<long>(rb) * window;
+  for (int r = threadIdx.x; r < window; r += blockDim.x) yb[r] = v;
 }
 
 // ymax[row] = max m, ymin[row] = min m over the positive messages
@@ -146,17 +213,18 @@ struct Args {
   const float* val;
   const float* x;
   float* y;
+  float* t_chunk;  // floor modes only: float[n_chunks]
   int window;
   int chunk;
   long n_x;  // length of x (n_vertices)
   long n_y;  // length of y (n_row_blocks * window)
 };
 
-template <int kSemiring, bool kUnit, bool kDense>
+template <int kSemiring, bool kUnit, bool kDense, int kMode = kFull>
 void launch(int blocks, cudaStream_t s, const Args& a) {
-  spmv_pull<kSemiring, kUnit, kDense><<<blocks, gr::kThreads, 0, s>>>(
+  spmv_pull<kSemiring, kUnit, kDense, kMode><<<blocks, gr::kThreads, 0, s>>>(
       a.queue, a.count, a.n_chunks, a.rb, a.cb, a.row, a.col, a.val, a.x,
-      a.y, a.window, a.chunk, a.n_x, a.n_y);
+      a.y, a.t_chunk, a.window, a.chunk, a.n_x, a.n_y);
 }
 
 template <bool kDense>
@@ -192,7 +260,7 @@ extern "C" int gr_spmv_sparse(int semiring, int unit, int blocks,
                static_cast<const int*>(row_local),
                static_cast<const int*>(col_local),
                static_cast<const float*>(values), static_cast<const float*>(x),
-               static_cast<float*>(y), window, chunk, n_vertices,
+               static_cast<float*>(y), nullptr, window, chunk, n_vertices,
                static_cast<long>(n_row_blocks) * window};
   return dispatch<false>(semiring, unit, blocks,
                          static_cast<cudaStream_t>(stream), a);
@@ -210,10 +278,44 @@ extern "C" int gr_spmv_dense(int semiring, int unit, int blocks, int n_chunks,
                static_cast<const int*>(row_local),
                static_cast<const int*>(col_local),
                static_cast<const float*>(values), static_cast<const float*>(x),
-               static_cast<float*>(y), window, chunk, n_vertices,
+               static_cast<float*>(y), nullptr, window, chunk, n_vertices,
                static_cast<long>(n_row_blocks) * window};
   return dispatch<true>(semiring, unit, blocks,
                         static_cast<cudaStream_t>(stream), a);
+}
+
+// A floor mode of the dense plus_times pass over valued chunks (mode 1:
+// gather, 2: stream; see the top of the file), chunks sorted by row block.
+// t_chunk: float[n_chunks] scratch; y: float[n_row_blocks * window],
+// written whole.
+extern "C" int gr_spmv_dense_floor(int mode, int blocks, int n_chunks,
+                                   const void* chunk_rb, const void* chunk_cb,
+                                   const void* row_local,
+                                   const void* col_local, const void* values,
+                                   const void* x, void* t_chunk, void* y,
+                                   int window, int chunk, int n_vertices,
+                                   int n_row_blocks, void* stream) {
+  const long n_y = static_cast<long>(n_row_blocks) * window;
+  const Args a{nullptr, nullptr, n_chunks, static_cast<const int*>(chunk_rb),
+               static_cast<const int*>(chunk_cb),
+               static_cast<const int*>(row_local),
+               static_cast<const int*>(col_local),
+               static_cast<const float*>(values), static_cast<const float*>(x),
+               static_cast<float*>(y), static_cast<float*>(t_chunk), window,
+               chunk, n_vertices, n_y};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == kGather)
+    launch<kPlusTimes, false, true, kGather>(blocks, s, a);
+  else if (mode == kStream)
+    launch<kPlusTimes, false, true, kStream>(blocks, s, a);
+  else
+    return cudaErrorInvalidValue;
+  const int err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  floor_fill<<<n_row_blocks, gr::kThreads, 0, s>>>(
+      static_cast<const int*>(chunk_rb), n_chunks,
+      static_cast<const float*>(t_chunk), static_cast<float*>(y), window);
+  return gr::finish(s);
 }
 
 // The fused max/min pass over the queued chunks. ymax, ymin:

@@ -33,6 +33,7 @@ def main(argv=None) -> int:
         result = run_all(graph, device=graph.device)
         times.append(result.elapsed_ms)
         run_sources = list(range(graph.n_vertices))
+        sources = []
     else:
         sources = parse_source_string(params.sources, graph.n_vertices,
                                       params.num_runs)
@@ -43,7 +44,7 @@ def main(argv=None) -> int:
             times.append(result.elapsed_ms)
         run_sources = run_sources[-1:]
     runner.print_head(runner.to_original(params, result.bc_values), name="bc")
-    runner.finish("bc", times)
+    runner.finish(params, "bc", graph, times, srcs=sources)
     if params.validate:
         # the Brandes oracle of the last source (of every source, summed
         # in float64, under --all_sources)

@@ -10,6 +10,10 @@ import sys
 
 from gunrock_tpu_torch.algorithms import bfs
 from gunrock_tpu_torch.examples import cpu_reference, runner
+from gunrock_tpu_torch.framework.benchmark import (
+    frontier_workload,
+    reached_from_distances,
+)
 from gunrock_tpu_torch.io.parameters import parse, parse_source_string
 
 
@@ -19,15 +23,19 @@ def main(argv=None) -> int:
     sources = parse_source_string(params.sources, graph.n_vertices,
                                   params.num_runs)
     run_sources = runner.map_sources(params, sources)
-    times, result = [], None
+    times, depths, result = [], [], None
     for src in run_sources:
         result = bfs.run(graph, src, options=params.options,
                          device=graph.device)
         times.append(result.elapsed_ms)
+        depths.append(result.search_depth)
     print(f"search depth {result.search_depth}")
     runner.print_head(runner.to_original(params, result.distances),
                       name="distances")
-    runner.finish("bfs", times)
+    work = frontier_workload(graph, reached_from_distances(result.distances))
+    runner.finish(params, "bfs", graph, times, srcs=sources, depths=depths,
+                  edges_visited=work.edges_visited,
+                  nodes_visited=work.vertices_visited)
     if params.validate:
         # oracle and result both in execution (possibly relabeled) ids
         ref = cpu_reference.bfs(graph, run_sources[-1])

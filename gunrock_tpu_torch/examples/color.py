@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     runner.print_head(runner.to_original(params, colors), name="colors")
     print(f"colors used: {int(colors.max()) + 1}, "
           f"{result.iterations} iterations")
-    runner.finish("color", times)
+    runner.finish(params, "color", graph, times)
     if params.validate:
         ok = cpu_reference.color_is_valid(graph, colors)
         print(f"color validation: {'PASSED' if ok else 'FAILED'}")

@@ -83,7 +83,7 @@ def main(argv=None) -> int:
     print(f"located {located}/{V} vertices")
     runner.print_head(runner.to_original(params, result.latitude),
                       name="latitude")
-    runner.finish("geo", times)
+    runner.finish(params, "geo", graph, times)
     if params.validate:
         n = cpu_reference.geo_invariants(
             graph, lat, lon, result.latitude.cpu().numpy(),

@@ -26,7 +26,7 @@ def main(argv=None) -> int:
     print(f"{result.iterations} iterations")
     runner.print_head(runner.to_original(params, result.auth), name="auth")
     runner.print_head(runner.to_original(params, result.hub), name="hub")
-    runner.finish("hits", times)
+    runner.finish(params, "hits", graph, times, depths=[result.iterations])
     if params.validate:
         ref_auth, ref_hub = cpu_reference.hits(graph, result.iterations)
         bad = runner.validate("hits auth", result.auth, ref_auth, atol=1e-3)

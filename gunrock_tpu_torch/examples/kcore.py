@@ -23,7 +23,7 @@ def main(argv=None) -> int:
     runner.print_head(runner.to_original(params, result.k_cores),
                       name="k_cores")
     print(f"degeneracy = {result.degeneracy}, {result.rounds} rounds")
-    runner.finish("kcore", times)
+    runner.finish(params, "kcore", graph, times)
     if params.validate:
         if runner.validate("kcore", result.k_cores,
                            cpu_reference.kcore(graph)):

@@ -29,7 +29,7 @@ def main(argv=None) -> int:
         times.append(result.elapsed_ms)
     print(f"mst weight = {result.mst_weight:.6f} "
           f"({result.n_components} component(s), {result.rounds} rounds)")
-    runner.finish("mst", times)
+    runner.finish(params, "mst", graph, times)
     if params.validate:
         want = cpu_reference.mst_weight(graph)
         ok = abs(result.mst_weight - want) <= 1e-5 * max(1.0, abs(want))

@@ -27,7 +27,7 @@ def main(argv=None) -> int:
     seeds = parse_source_string(params.sources, graph.n_vertices,
                                 params.num_runs)
     run_seeds = runner.map_sources(params, seeds)
-    times = []
+    times, depths = [], []
     if len(run_seeds) > 1:
         p, elapsed = ppr.run_batch(graph, run_seeds, alpha=alpha,
                                    epsilon=epsilon, device=graph.device)
@@ -38,10 +38,11 @@ def main(argv=None) -> int:
         result = ppr.run(graph, run_seeds[0], alpha=alpha, epsilon=epsilon,
                          options=params.options, device=graph.device)
         times.append(result.elapsed_ms)
+        depths.append(result.iterations)
         print(f"{result.iterations} iterations")
         runner.print_head(runner.to_original(params, result.p), name="p")
         p = result.p[None]
-    runner.finish("ppr", times)
+    runner.finish(params, "ppr", graph, times, srcs=seeds, depths=depths)
     if params.validate:
         # every seed's row against the oracle, both in execution (possibly
         # relabeled) ids, within rtol 1e-4 + atol 1e-6

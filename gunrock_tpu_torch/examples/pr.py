@@ -11,6 +11,7 @@ import sys
 
 from gunrock_tpu_torch.algorithms import pr
 from gunrock_tpu_torch.examples import cpu_reference, runner
+from gunrock_tpu_torch.framework.benchmark import dense_workload
 from gunrock_tpu_torch.io.parameters import parse
 
 
@@ -36,7 +37,10 @@ def main(argv=None) -> int:
         for k, a in enumerate(alphas):
             runner.print_head(runner.to_original(params, batch.p[:, k]),
                               name=f"rank[alpha={a}]")
-        runner.finish("pr", times)
+        work = dense_workload(graph, batch.iterations)
+        runner.finish(params, "pr", graph, times, depths=[batch.iterations],
+                      edges_visited=work.edges_visited * len(alphas),
+                      nodes_visited=work.vertices_visited)
         if params.validate:
             bad = 0
             for k, a in enumerate(alphas):
@@ -47,14 +51,18 @@ def main(argv=None) -> int:
                 return 1
         return 0
 
-    times, result = [], None
+    times, depths, result = [], [], None
     for _ in range(params.num_runs):
         result = pr.run(graph, alpha=params.extra.alpha, tol=tol,
                         options=params.options, device=graph.device)
         times.append(result.elapsed_ms)
+        depths.append(result.iterations)
     print(f"{result.iterations} iterations")
     runner.print_head(runner.to_original(params, result.p), name="rank")
-    runner.finish("pr", times)
+    work = dense_workload(graph, depths[-1])
+    runner.finish(params, "pr", graph, times, depths=depths,
+                  edges_visited=work.edges_visited,
+                  nodes_visited=work.vertices_visited)
     if params.validate:
         ref = cpu_reference.pr(graph, alpha=params.extra.alpha, tol=tol)
         if runner.validate("pr", result.p, ref, atol=1e-4):

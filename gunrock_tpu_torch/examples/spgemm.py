@@ -39,7 +39,7 @@ def main(argv=None) -> int:
                             device=graph_a.device)
         times.append(result.elapsed_ms)
     print(f"C nnz = {result.nnz}")
-    runner.finish("spgemm", times)
+    runner.finish(params, "spgemm", graph_a, times)
     if params.validate:
         # entry by entry against scipy's product, both sparse: rtol 1e-3,
         # atol 1e-4 (the f32 sums run in another order)

@@ -15,6 +15,7 @@ import numpy as np
 
 from gunrock_tpu_torch.algorithms import spmv
 from gunrock_tpu_torch.examples import cpu_reference, runner
+from gunrock_tpu_torch.framework.benchmark import dense_workload
 from gunrock_tpu_torch.io.parameters import parse
 
 
@@ -30,7 +31,10 @@ def main(argv=None) -> int:
                           device=graph.device)
         times.append(result.elapsed_ms)
     runner.print_head(runner.to_original(params, result.y), name="y")
-    runner.finish("spmv", times)
+    work = dense_workload(graph, 1)
+    runner.finish(params, "spmv", graph, times,
+                  edges_visited=work.edges_visited,
+                  nodes_visited=work.vertices_visited)
     if params.validate:
         if runner.validate("spmv", result.y, cpu_reference.spmv(graph, x)):
             return 1

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import sys
 
-import numpy as np
-
 from gunrock_tpu_torch.algorithms import sssp
 from gunrock_tpu_torch.examples import cpu_reference, runner
+from gunrock_tpu_torch.framework.benchmark import (
+    frontier_workload,
+    reached_from_distances,
+)
 from gunrock_tpu_torch.io.parameters import parse, parse_source_string
 from gunrock_tpu_torch.utils.compare import to_numpy
 
@@ -35,17 +37,20 @@ def main(argv=None) -> int:
     sources = parse_source_string(params.sources, graph.n_vertices,
                                   params.num_runs)
     run_sources = runner.map_sources(params, sources)
-    times, result = [], None
+    times, depths, result = [], [], None
     for src in run_sources:
         result = sssp.run(graph, src, options=params.options,
                           device=graph.device)
         times.append(result.elapsed_ms)
+        depths.append(result.search_depth)
     dist = to_numpy(result.distances)
-    deg = np.diff(graph.host["row_offsets"])
+    work = frontier_workload(graph, reached_from_distances(dist))
     print(f"search depth {result.search_depth}, "
-          f"{int(deg[np.isfinite(dist)].sum())} edges visited")
+          f"{work.edges_visited} edges visited")
     runner.print_head(runner.to_original(params, dist), name="distances")
-    runner.finish("sssp", times)
+    runner.finish(params, "sssp", graph, times, srcs=sources, depths=depths,
+                  edges_visited=work.edges_visited,
+                  nodes_visited=work.vertices_visited)
     if params.validate:
         # oracle and result both in execution (possibly relabeled) ids
         ref = cpu_reference.sssp(graph, run_sources[-1])

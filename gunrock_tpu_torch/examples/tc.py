@@ -33,7 +33,7 @@ def main(argv=None) -> int:
     if params.extra.reduce:
         print(f"total (3x triangles) = {result.total_triangles_count}; "
               f"distinct triangles = {result.n_triangles}")
-    runner.finish("tc", times)
+    runner.finish(params, "tc", graph, times)
     if params.validate:
         if runner.validate("tc", result.vertex_triangles_count,
                            cpu_reference.tc(graph)):

@@ -1,6 +1,8 @@
 """CLI parameter system for the examples (the part of
 ``gunrock_tpu/io/parameters.py`` the port's CLIs use, plus ``--device``).
-``extra_args`` adds a CLI's own flags; they land on ``Parameters.extra``."""
+``extra_args`` adds a CLI's own flags; they land on ``Parameters.extra``.
+``--export_metrics`` writes the run's stats JSON (``utils/performance``)
+into ``--json_dir``/``--json_file`` with the ``--tag`` tags."""
 
 from __future__ import annotations
 
@@ -25,6 +27,10 @@ class Parameters:
     sources: str
     num_runs: int
     validate: bool
+    export_metrics: bool
+    json_dir: str
+    json_file: str
+    tags: list
     options: Options
     device: str
     reorder: str
@@ -46,6 +52,12 @@ def build_parser(algorithm: str, extra_args=None) -> argparse.ArgumentParser:
     )
     p.add_argument("-m", "--market", required=True,
                    help="Matrix file (.mtx/.csr)")
+    p.add_argument("--export_metrics", action="store_true",
+                   help="export performance analysis metrics")
+    p.add_argument("-d", "--json_dir", default=".", help="JSON output directory")
+    p.add_argument("-f", "--json_file", default="", help="JSON output file")
+    p.add_argument("-t", "--tag", default="",
+                   help="comma-separated tags for the JSON output")
     p.add_argument("--device", default=DEFAULT,
                    help="torch device to run on (default: cuda; fails "
                    "without a card rather than falling back to the CPU)")
@@ -94,6 +106,10 @@ def parse_source_string(source_str: str, n_vertices: int, n_runs: int) -> list[i
     return sources
 
 
+def parse_tag_string(tag_str: str) -> list[str]:
+    return [t for t in tag_str.split(",") if t]
+
+
 def parse(algorithm: str, argv=None, extra_args=None) -> Parameters:
     parser = build_parser(algorithm, extra_args)
     ns = parser.parse_args(argv)
@@ -114,6 +130,10 @@ def parse(algorithm: str, argv=None, extra_args=None) -> Parameters:
         sources=getattr(ns, "src", ""),
         num_runs=ns.num_runs,
         validate=ns.validate,
+        export_metrics=ns.export_metrics,
+        json_dir=ns.json_dir,
+        json_file=ns.json_file,
+        tags=parse_tag_string(ns.tag),
         options=options,
         device=ns.device,
         reorder=ns.reorder,

@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("chunkplan", "semiring", "spmm", "bfs_push", "hits_fused",
-           "sssp_push", "mst_min", "geo_step", "banded")
+           "sssp_push", "mst_min", "geo_step", "banded", "probes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -58,6 +58,9 @@ _SIGNATURES = {
                       _I, _P],
     "gr_spmv_sparse_minmax": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P],
+    # the dense pass's floor modes (ops/kernels/probes.py::spmv_floor)
+    "gr_spmv_dense_floor": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _P],
 }
 
 

@@ -52,7 +52,14 @@ def _entry_points():
     from gunrock_tpu_torch.examples import pr as pr_cli
     from gunrock_tpu_torch.formats import Coo
     from gunrock_tpu_torch.graph import build_graph
+    from gunrock_tpu_torch.device import get_device_properties
     from gunrock_tpu_torch.io import load_graph_file, rmat_graph
+    from gunrock_tpu_torch.probes import dma as dma_probe
+    from gunrock_tpu_torch.probes import gather as gather_probe
+    from gunrock_tpu_torch.probes import gather2 as gather2_probe
+    from gunrock_tpu_torch.probes import v5_floor
+    from gunrock_tpu_torch.utils import roofline
+    from gunrock_tpu_torch.utils.performance import export_performance_stats
 
     def cpu_graph():
         return load_graph_file(CHESAPEAKE, device="cpu")[0]
@@ -102,6 +109,15 @@ def _entry_points():
         "kcore_cli": lambda: kcore_cli.main(["--market", CHESAPEAKE]),
         "ppr_cli": lambda: ppr_cli.main(["--market", CHESAPEAKE, "--src",
                                          "0"]),
+        "get_device_properties": lambda: get_device_properties(),
+        "roofline": lambda: roofline.roofline("bfs", 39, 340, 340, 1.0, {}),
+        "bound_ms": lambda: roofline.bound_ms(1e6),
+        "export_performance_stats": lambda: export_performance_stats(
+            "bfs", [1.0], json_dir=str(ROOT / "nonexistent_never_written")),
+        "probes.v5_floor": lambda: v5_floor.main(["dma", "--scale", "4"]),
+        "probes.gather": lambda: gather_probe.main(["lane"]),
+        "probes.gather2": lambda: gather2_probe.main(["wide"]),
+        "probes.dma": lambda: dma_probe.main(["check"]),
     }
 
 
@@ -119,7 +135,11 @@ def _entry_points():
                                   "spgemm.run", "geo.run", "interop.bc_run",
                                   "interop.tc_run", "interop.spgemm_run",
                                   "interop.geo_run", "bc_cli", "tc_cli",
-                                  "spgemm_cli", "geo_cli"])
+                                  "spgemm_cli", "geo_cli",
+                                  "get_device_properties", "roofline",
+                                  "bound_ms", "export_performance_stats",
+                                  "probes.v5_floor", "probes.gather",
+                                  "probes.gather2", "probes.dma"])
 def test_entry_point_default_device_needs_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
