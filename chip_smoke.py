@@ -31,6 +31,12 @@ Phases, each raising on failure:
    gather) on the valued pull layout, the gather at every shape of the two
    gather probes, the bulk block copy at the dma probe's case and at one
    x-window per chunk.
+   The span kernels of the sparse and dense semiring passes over their
+   whole range: the three semirings, unit and valued, a full, a 10% and an
+   empty frontier with and without out_mask, at W=2048/C=256 and
+   W=4096/C=1024, at the edge shapes also with spans of 3 chunks, with
+   C=125 (scalar loads) and edgeless.
+   Then the edge shapes again, 20 times, on the range-checking build.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
    a. BFS: ``bfs.run`` (direction-optimizing BFS) from the 8
@@ -97,6 +103,7 @@ except ImportError as exc:  # run without the package beside it
 
 SCALE, EDGE_FACTOR, SEED, K = 18, 16, 1, 32
 TC_SLABS = 5  # slabs of the slabbed triangle-counting run
+CHECKED_RUNS = 20  # edge-shape runs on the range-checking build
 # the keys of the metrics JSON (the reference's schema "2022-10-28", as the
 # JAX package's utils/performance.py writes it)
 EXPORT_KEYS = {
@@ -240,6 +247,76 @@ def compare_kernels(torch, graph, layouts, k: int) -> dict:
         new_p, _ = bfs.bfs_push_step_plain(graph, front, d_p, 1)
         err("bfs_push_step", new_k, new_p, True, "new_mask")
         err("bfs_push_step", d_k, d_p, True, "distances")
+    return errs
+
+
+def compare_span_kernels(torch, layouts, keys) -> dict:
+    """B1 (the frontier-sparse pass) and B3 (the dense pass), the span
+    kernels, against their plain versions over each layout of ``keys``:
+    the three semirings, unit and valued (a unit pass ignores the values),
+    B1 on a full, a 10% and an empty frontier, each with and without an
+    out_mask, and the BFS pull's 0/1 counts. Exact for min/max and the
+    counts; float plus_times by :func:`sum_check`. An edgeless layout must
+    give the identity. Returns {kernel: max abs error}."""
+    from gunrock_tpu_torch.ops.kernels import chunkplan, semiring
+
+    errs = {}
+    b1, b3 = "bucketed_semiring_spmv_sparse", "bucketed_semiring_spmv"
+    for key in keys:
+        L = layouts[key]
+        V, dev = L.n_vertices, L.device
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        full = torch.ones(V, dtype=torch.bool, device=dev)
+        fronts = {"full": full,
+                  "10%": torch.rand(V, device=dev, generator=gen) < 0.1,
+                  "empty": torch.zeros(V, dtype=torch.bool, device=dev)}
+        half = torch.rand(V, device=dev, generator=gen) < 0.5
+        for sr in ("plus_times", "max_times", "min_plus"):
+            ident = torch.inf if sr == "min_plus" else 0.0
+            for unit in (True, False):
+                for front, active in (("dense", full), *fronts.items()):
+                    noise = torch.randn(V, device=dev, generator=gen)
+                    if sr == "min_plus":  # inactive: the gather identity
+                        x = torch.where(active, noise, torch.inf)
+                    elif sr == "max_times":  # negative messages too
+                        x = torch.where(active, noise, 0.0)
+                    else:
+                        x = torch.where(active, noise.abs(), 0.0)
+                    for om in ((None,) if front == "dense" else (None, half)):
+                        what = (f"{sr} unit={unit} {key} W={L.window}/"
+                                f"C={L.chunk} {front} out_mask={om is not None}")
+                        if front == "dense":
+                            name = b3
+                            got, want = both(
+                                torch, semiring.bucketed_semiring_spmv,
+                                semiring.bucketed_semiring_spmv_plain, L, x,
+                                sr, unit=unit)
+                            ch_act = None
+                        else:
+                            name = b1
+                            got, want = both(
+                                torch, semiring.bucketed_semiring_spmv_sparse,
+                                semiring.bucketed_semiring_spmv_sparse_plain,
+                                L, x, active, sr, out_mask=om, unit=unit)
+                            ch_act = (chunkplan.chunk_activity_plain(
+                                L, active, om)[0] if L.n_chunks else None)
+                        if L.n_chunks == 0:
+                            if not bool((got == ident).all()):
+                                raise AssertionError(f"{name} {what}: edgeless "
+                                                     "layout, not the identity")
+                            errs[name] = errs.get(name, 0.0)
+                        elif sr == "plus_times":
+                            errs[name] = max(errs.get(name, 0.0), sum_check(
+                                torch, f"{name} {what}", got,
+                                *layout_terms(L, x, unit, ch_act), want))
+                        else:
+                            record(torch, errs, name, got, want, True, what)
+        for front, active in fronts.items():  # the BFS pull: 0/1 counts
+            got, want = both(torch, semiring.bucketed_semiring_spmv_sparse,
+                             semiring.bucketed_semiring_spmv_sparse_plain, L,
+                             active.float(), active, "plus_times",
+                             out_mask=half, unit=True)
+            record(torch, errs, b1, got, want, True, f"0/1 {key} {front}")
     return errs
 
 
@@ -800,6 +877,16 @@ def check_edge_shapes(torch, dev) -> None:
     errs.update(compare_probe_kernels(torch, layouts, dev))
     empty = np.zeros(0, np.int32)
     edgeless = layout(empty, empty, empty.astype(np.float32))
+    # the span kernels also with several spans per row block (P = 3) and
+    # with scalar loads (C = 125, no multiple of 4)
+    layouts["edgeless"] = edgeless
+    layouts["neg_p3"] = layouts["neg"].with_span_chunks(3)
+    layouts["odd_chunk"] = build_bucketed_layout(rows, cols, neg, V, window=W,
+                                                 chunk=125, device=dev)
+    for name, e in compare_span_kernels(torch, layouts, (
+            "valued", "neg", "neg_p3", "odd_chunk", "empty_row",
+            "edgeless")).items():
+        errs[name] = max(errs.get(name, 0.0), e)
     x = torch.ones(V, device=dev)
     act = torch.ones(V, dtype=torch.bool, device=dev)
     if not (bool((semiring.bucketed_semiring_spmv_sparse(
@@ -828,8 +915,8 @@ def check_edge_shapes(torch, dev) -> None:
             raise AssertionError("edgeless layout: Weiszfeld sums not 0")
     torch.cuda.synchronize()
     print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
-          f"negative values; an empty row window; edgeless): max abs err "
-          f"{errs}")
+          f"negative values; an empty row window; edgeless; spans of 3 "
+          f"chunks; C=125): max abs err {errs}")
 
 
 def compare_probe_kernels(torch, layouts, dev) -> dict:
@@ -907,21 +994,30 @@ def edge_shapes_main(checked: bool = False, repeat: int = 1) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
+    run_edge_shapes(torch, checked, repeat)
+    return 0
+
+
+def run_edge_shapes(torch, checked: bool, repeat: int) -> list:
+    """Build the kernels (the range-checking build when ``checked``) and
+    run the edge-shape checks ``repeat`` times, printing one line each.
+    Returns the launches of each run; raises at the first fault."""
     from gunrock_tpu_torch.ops.kernels import _build
 
     print(f"built kernels in {_build.build(checked=checked):.1f} s "
           f"(checked={checked})")
+    launches = []
     _build.use_checked(checked)
     try:
         for i in range(repeat):
             _build.reset_launches()
             check_edge_shapes(torch, torch.device("cuda"))
+            launches.append(sum(_build.LAUNCHES.values()))
             print(f"edge shapes run {i + 1}/{repeat}: ok, no fault in "
-                  f"{sum(_build.LAUNCHES.values())} launches "
-                  f"(checked={checked})")
+                  f"{launches[-1]} launches (checked={checked})")
     finally:
         _build.use_checked(False)
-    return 0
+    return launches
 
 
 def check_kernels(torch, graph, layouts):
@@ -933,6 +1029,7 @@ def check_kernels(torch, graph, layouts):
     from gunrock_tpu_torch.utils.limits import UNREACHED
 
     errs = compare_kernels(torch, graph, layouts, K)
+    span_errs = compare_span_kernels(torch, layouts, ("valued", "pr"))
     dev = graph.device
     V = graph.n_vertices
     lay = layouts["unit"]
@@ -1035,13 +1132,18 @@ def check_kernels(torch, graph, layouts):
                  "bucketed_spmm_sparse"):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         analysis_errs[name])
+    for name, e in span_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     # the device's own busy time per call (ms above is wall time between
-    # CUDA events, which the host's launch overhead can set); the push
-    # step's includes its 1 MB distance copy
+    # CUDA events, which the host's launch overhead can set), and each
+    # kernel's share of it in microseconds per call; the push step's
+    # includes its 1 MB distance copy
     for name, fn in timed.items():
         prof = device_profile(lambda: [fn() for _ in range(20)])
         rows[name]["device_ms"] = (prof["busy_us"] / 20e3 if "busy_us" in prof
                                    else None)
+        rows[name]["device_kernels_us"] = {
+            k: us / 20 for k, (us, _) in prof.get("top_us", {}).items()}
     return rows
 
 
@@ -1086,7 +1188,7 @@ def family_kernel_rows(torch, graph, layouts, timed) -> dict:
         max_abs_err=errs["bucketed_semiring_spmv"],
         ms=time_ms(torch, timed.setdefault(
             "bucketed_semiring_spmv",
-            lambda: semiring.bucketed_semiring_spmv(lay, x, "plus_times"))),
+            lambda lay=lay: semiring.bucketed_semiring_spmv(lay, x, "plus_times"))),
         plain_ms=time_ms(torch, lambda: semiring.bucketed_semiring_spmv_plain(
             lay, x, "plus_times")),
         bound_ms=b, bound_by=by,
@@ -2116,6 +2218,14 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
     print(f"float plus_times checks: largest error {LIMIT_SHARE['max']:.4f} "
           "of its f32 summation limit")
+
+    # the edge shapes again on the range-checking build: every computed
+    # index tested before use, every launch synchronised
+    t0 = time.perf_counter()
+    runs = run_edge_shapes(torch, True, CHECKED_RUNS)
+    print(json.dumps({"checked_edge_shapes": {
+        "runs": len(runs), "faults": 0, "launches_per_run": runs[-1]}}))
+    seconds["checked_edge_shapes"] = time.perf_counter() - t0
 
     # 3. the main paths, launches counted from zero before each
     bfs_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",

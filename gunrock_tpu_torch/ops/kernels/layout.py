@@ -13,6 +13,15 @@ paged metadata (``layout.py:194-266``), and the ``rb*65536+cb`` packing
 limit (``layout.py:95-103``). The port keeps ``chunk_rb``/``chunk_cb`` as
 two int32 tensors and builds at W=2048/C=256, or at W=4096/C=1024 where
 :func:`dense_window_chunk` picks it for a dense-only algorithm.
+
+What the port adds: the span table of the semiring pull
+(``csrc/semiring.cu``). Chunks are sorted by row block, so each row
+block's chunks are one contiguous range; :func:`span_table` cuts each
+range into spans of at most P chunks (``span_chunks``: about
+``SPAN_SLOTS`` slots each), and one block of the pull reduces one span
+into its row window in shared memory. It is computed from ``chunk_rb``
+whenever a layout is made, so a layout carried over from the JAX package's
+arrays has it too; it is not one of ``DATA_FIELDS``.
 """
 
 from __future__ import annotations
@@ -33,6 +42,42 @@ _DTYPES = {"row_local": np.int32, "col_local": np.int32,
            "rb_occupied": np.bool_}
 
 WINDOW, CHUNK = 2048, 256
+SPAN_SLOTS = 8192  # slots one block of the semiring pull aims to reduce
+
+
+def span_chunks(chunk: int) -> int:
+    """P, the most chunks of one span: ``SPAN_SLOTS // chunk``, at least 1
+    (32 at C=256, 8 at C=1024)."""
+    return max(1, SPAN_SLOTS // chunk)
+
+
+def span_table(chunk_rb, n_row_blocks: int, max_chunks: int):
+    """(span_first_chunk int32[n_spans + 1], rb_first_span
+    int32[n_row_blocks + 1]) for chunks sorted by row block: each row
+    block's chunk range is cut into ceil(n / max_chunks) spans of as near
+    equal length as can be, so a span lies in one row block and holds at
+    most ``max_chunks`` chunks. Span s covers chunks
+    [span_first_chunk[s], span_first_chunk[s + 1]); row block rb owns
+    spans [rb_first_span[rb], rb_first_span[rb + 1]), none where no chunk
+    reaches it."""
+    rb = np.asarray(chunk_rb).astype(np.int64)
+    if max_chunks < 1:
+        raise ValueError(f"max_chunks must be >= 1, got {max_chunks}")
+    if rb.size and (np.any(np.diff(rb) < 0) or rb[0] < 0
+                    or rb[-1] >= n_row_blocks):
+        raise ValueError("chunk_rb must be sorted and within the row blocks")
+    counts = np.bincount(rb, minlength=n_row_blocks)
+    rb_start = np.zeros(n_row_blocks + 1, np.int64)
+    np.cumsum(counts, out=rb_start[1:])
+    n_span = -(-counts // max_chunks)
+    rb_first_span = np.zeros(n_row_blocks + 1, np.int64)
+    np.cumsum(n_span, out=rb_first_span[1:])
+    span_rb = np.repeat(np.arange(n_row_blocks), n_span)
+    k = np.arange(span_rb.size) - rb_first_span[span_rb]
+    # span k of n over a block's c chunks starts at chunk floor(k * c / n)
+    first = rb_start[span_rb] + k * counts[span_rb] // n_span[span_rb]
+    span_first_chunk = np.append(first, rb.size)
+    return span_first_chunk.astype(np.int32), rb_first_span.astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,13 +99,17 @@ class BucketedEdges:
     n_row_blocks: int
     n_col_blocks: int
     n_vertices: int
+    # the span table (span_table): int32[n_spans + 1], int32[n_row_blocks + 1]
+    span_first_chunk: torch.Tensor
+    rb_first_span: torch.Tensor
 
     @classmethod
     def from_arrays(cls, arrays: dict, window: int, chunk: int, n_chunks: int,
                     n_row_blocks: int, n_col_blocks: int, n_vertices: int,
                     device=DEFAULT) -> "BucketedEdges":
         """Layout from the eight named numpy arrays (``DATA_FIELDS``) and
-        the six meta fields. Bit words may come as uint32 or int32."""
+        the six meta fields, with its span table at P = ``span_chunks``.
+        Bit words may come as uint32 or int32."""
         dev = resolve(device)
         tensors = {}
         for name in DATA_FIELDS:
@@ -70,13 +119,30 @@ class BucketedEdges:
             else:
                 a = a.astype(_DTYPES[name])
             tensors[name] = torch.from_numpy(a).to(dev)
+        spans = span_table(arrays["chunk_rb"], int(n_row_blocks),
+                           span_chunks(int(chunk)))
         return cls(**tensors, window=int(window), chunk=int(chunk),
                    n_chunks=int(n_chunks), n_row_blocks=int(n_row_blocks),
-                   n_col_blocks=int(n_col_blocks), n_vertices=int(n_vertices))
+                   n_col_blocks=int(n_col_blocks), n_vertices=int(n_vertices),
+                   span_first_chunk=torch.from_numpy(spans[0]).to(dev),
+                   rb_first_span=torch.from_numpy(spans[1]).to(dev))
+
+    def with_span_chunks(self, max_chunks: int) -> "BucketedEdges":
+        """The same layout with its span table cut at P = ``max_chunks``
+        (to measure the pull at another P)."""
+        spans = span_table(self.chunk_rb.cpu().numpy(), self.n_row_blocks,
+                           max_chunks)
+        return dataclasses.replace(
+            self, span_first_chunk=torch.from_numpy(spans[0]).to(self.device),
+            rb_first_span=torch.from_numpy(spans[1]).to(self.device))
 
     @property
     def device(self) -> torch.device:
         return self.row_local.device
+
+    @property
+    def n_spans(self) -> int:
+        return self.span_first_chunk.numel() - 1
 
 
 def _pack_subblock_bits(chunk_ids, local, window: int, n_chunks: int):

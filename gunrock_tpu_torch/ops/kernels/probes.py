@@ -27,7 +27,6 @@ from gunrock_tpu_torch.ops.kernels.semiring import _SIGNATURES as _SEMIRING_SIGN
 
 FLOOR_MODES = {"gather": 1, "dma": 2}  # probe variant: kernel mode
 FLOOR_SCALE = 1e-30  # the probe's weight on each row block's sum
-_BLOCKS_PER_SM = 8
 _COPY_STAGES = 4  # kStages in csrc/probes.cu: the ring's buffers
 _MAX_COPY_SMEM = 200 * 1024  # the block copy's ring, within 227 KB
 
@@ -52,8 +51,7 @@ def spmv_floor(layout: BucketedEdges, x: torch.Tensor,
     the sum, over rb's chunks and their real slots, of ``values`` (``mode=
     "dma"``: the stream alone) or of ``values * x[col]`` (``"gather"``: the
     stream and the gather, no scatter). Blocks no chunk reaches are 0.
-    The kernel takes the chunks sorted by row block, as
-    ``build_bucketed_layout`` makes them."""
+    The kernel walks the layout's span table, the dense pass's loop."""
     dev = layout.device
     _build.check_tensor(x, "x", torch.float32, (layout.n_vertices,), dev)
     if mode not in FLOOR_MODES:
@@ -65,15 +63,15 @@ def spmv_floor(layout: BucketedEdges, x: torch.Tensor,
     if dev.type == "cpu":
         return spmv_floor_plain(layout, x, mode)
     _cuda_or_raise(dev, "floor")
-    t_chunk = torch.empty(layout.n_chunks, dtype=torch.float32, device=dev)
+    t_span = torch.empty(layout.n_spans, dtype=torch.float32, device=dev)
     y = torch.empty((layout.n_row_blocks, W), dtype=torch.float32, device=dev)
-    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
     lib = _build.load("semiring", _SEMIRING_SIGNATURES)
     err = lib.gr_spmv_dense_floor(
-        FLOOR_MODES[mode], blocks, layout.n_chunks,
-        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
+        FLOOR_MODES[mode], layout.n_spans, _build.ptr(layout.span_first_chunk),
+        _build.ptr(layout.rb_first_span), layout.n_chunks,
+        _build.ptr(layout.chunk_cb),
         _build.ptr(layout.row_local), _build.ptr(layout.col_local),
-        _build.ptr(layout.values), _build.ptr(x), _build.ptr(t_chunk),
+        _build.ptr(layout.values), _build.ptr(x), _build.ptr(t_span),
         _build.ptr(y), W, layout.chunk, layout.n_vertices,
         layout.n_row_blocks, _build.stream(dev),
     )

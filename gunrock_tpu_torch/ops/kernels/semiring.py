@@ -26,8 +26,11 @@ identity. ``unit=True`` skips the values: msg = x for plus/max, min(x,
 _BIG) for min_plus (the (x)-identity, not weight 1). ``exact`` is accepted
 for the callers and changes nothing: the port computes in f32 throughout.
 
-CUDA source: ``csrc/semiring.cu`` (one kernel template, sparse or dense,
-and the max/min kernel).
+CUDA source: ``csrc/semiring.cu``. The sparse and dense passes are one
+template: a block per span of the layout's span table reduces its chunks
+into the row window in shared memory, and a second pass combines the
+spans of each row block into y, which the kernels write whole. The
+max/min pass is a kernel of its own.
 """
 
 from __future__ import annotations
@@ -52,16 +55,26 @@ _BLOCKS_PER_SM = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_spmv_sparse": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                       _I, _I, _I, _P],
-    "gr_spmv_dense": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _P],
+    "gr_spmv_pull": [_I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _I, _I, _I, _I, _P],
     "gr_spmv_sparse_minmax": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P],
     # the dense pass's floor modes (ops/kernels/probes.py::spmv_floor)
-    "gr_spmv_dense_floor": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _P],
+    "gr_spmv_dense_floor": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
 }
+# the span pass holds a row window of W floats in shared memory, beside 1 KB
+# of its own: within the 227 KB one block can take on Hopper
+MAX_WINDOW = (227 * 1024 - 1024) // 4
+
+
+def check_window(window: int) -> None:
+    """Raise unless the span pass can hold a row window of ``window``
+    floats in shared memory and store it four at a time."""
+    if window % 4 or not 0 < window <= MAX_WINDOW:
+        raise ValueError(f"the semiring pull takes a window that is a "
+                         f"multiple of 4 and at most {MAX_WINDOW} floats "
+                         f"(227 KB of shared memory), got {window}")
 
 
 def _finish(y: torch.Tensor, V: int, semiring: str) -> torch.Tensor:
@@ -86,7 +99,6 @@ def bucketed_semiring_spmv(
     """f32[V]: the dense semiring pull over every chunk of ``layout``. See
     the module docstring for the contract; a min_plus layout carries
     ``pad_value=_BIG``."""
-    sr_id, ident, _ = SEMIRINGS[semiring]
     dev = layout.device
     V = layout.n_vertices
     _build.check_tensor(x, "x", torch.float32, (V,), dev)
@@ -96,21 +108,31 @@ def bucketed_semiring_spmv(
         return bucketed_semiring_spmv_plain(layout, x, semiring, unit=unit)
     if dev.type != "cuda":
         raise ValueError(f"no semiring kernel for device {dev}")
-    W = layout.window
-    y = torch.full((layout.n_row_blocks * W,), ident, dtype=torch.float32,
-                   device=dev)
-    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
+    return _pull(layout, x, semiring, unit, None, "bucketed_semiring_spmv")
+
+
+def _pull(layout: BucketedEdges, x, semiring: str, unit: bool, ch_act,
+          what: str) -> torch.Tensor:
+    """Launch the span pass and the reduce pass over the chunks ``ch_act``
+    selects (every chunk when None) and count the launch as ``what``."""
+    check_window(layout.window)
+    dev = layout.device
+    W, V, n_spans = layout.window, layout.n_vertices, layout.n_spans
+    y = torch.empty(layout.n_row_blocks * W, dtype=torch.float32, device=dev)
+    # the partial windows of the spans, then their touched flags
+    scratch = torch.empty(n_spans * (W + 1), dtype=torch.float32, device=dev)
     lib = _build.load("semiring", _SIGNATURES)
-    err = lib.gr_spmv_dense(
-        sr_id, int(unit), blocks, layout.n_chunks,
-        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
+    err = lib.gr_spmv_pull(
+        SEMIRINGS[semiring][0], int(unit), _build.ptr(ch_act), n_spans,
+        _build.ptr(layout.span_first_chunk), _build.ptr(layout.rb_first_span),
+        layout.n_chunks, _build.ptr(layout.chunk_cb),
         _build.ptr(layout.row_local), _build.ptr(layout.col_local),
         None if unit else _build.ptr(layout.values), _build.ptr(x),
-        _build.ptr(y), W, layout.chunk, V, layout.n_row_blocks,
-        _build.stream(dev),
+        _build.ptr(y), _build.ptr(scratch), W, layout.chunk, V,
+        layout.n_row_blocks, _build.stream(dev),
     )
-    _build.check(err, "bucketed_semiring_spmv")
-    _build.LAUNCHES["bucketed_semiring_spmv"] += 1
+    _build.check(err, what)
+    _build.LAUNCHES[what] += 1
     return _finish(y, V, semiring)
 
 
@@ -155,7 +177,6 @@ def bucketed_semiring_spmv_sparse(
     """f32[V]: the semiring pull over the chunks ``active`` (and
     ``out_mask``) select. See the module docstring for the contract."""
     del exact  # f32 throughout covers the bf16-exact mode
-    sr_id, ident, _ = SEMIRINGS[semiring]
     dev = layout.device
     V = layout.n_vertices
     _build.check_tensor(x, "x", torch.float32, (V,), dev)
@@ -169,24 +190,9 @@ def bucketed_semiring_spmv_sparse(
             layout, x, active, semiring, out_mask, unit=unit)
     if dev.type != "cuda":
         raise ValueError(f"no semiring kernel for device {dev}")
-    _, queue, count = chunk_activity(layout, active, out_mask)
-    W = layout.window
-    y = torch.full((layout.n_row_blocks * W,), ident, dtype=torch.float32,
-                   device=dev)
-    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
-    lib = _build.load("semiring", _SIGNATURES)
-    err = lib.gr_spmv_sparse(
-        sr_id, int(unit), blocks, _build.ptr(queue), _build.ptr(count),
-        layout.n_chunks,
-        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
-        _build.ptr(layout.row_local), _build.ptr(layout.col_local),
-        None if unit else _build.ptr(layout.values), _build.ptr(x),
-        _build.ptr(y), W, layout.chunk, V, layout.n_row_blocks,
-        _build.stream(dev),
-    )
-    _build.check(err, "bucketed_semiring_spmv_sparse")
-    _build.LAUNCHES["bucketed_semiring_spmv_sparse"] += 1
-    return _finish(y, V, semiring)
+    ch_act = chunk_activity(layout, active, out_mask)[0]
+    return _pull(layout, x, semiring, unit, ch_act,
+                 "bucketed_semiring_spmv_sparse")
 
 
 def bucketed_semiring_spmv_sparse_plain(

@@ -7,23 +7,25 @@ time.
     python -m gunrock_tpu_torch.probes.gather   [lane|sublane|flat|twolevel|bench|all]
     python -m gunrock_tpu_torch.probes.gather2  [wide|tall|big|bench|bench_sub|all]
     python -m gunrock_tpu_torch.probes.dma      [check|bench|all]
+    python -m gunrock_tpu_torch.probes.pull     [--sweep 4,8,16,32]
+
+(``pull`` has no TPU counterpart: it times the semiring pull's span
+kernels, B1 and B3, and sweeps the span length.)
 
 Each runs on the card (``--device cuda``, the default; it raises without
 one) and runs every variant in one process: the JAX drivers' one
 subprocess per variant guarded against a TPU fault the card does not
 have. Times are CUDA-event means over warm calls; device times come from
-a ``torch.profiler`` trace (``utils/profiler``, ``utils/trace_stats``).
+a ``torch.profiler`` profile (``utils/trace_stats.device_profile``).
 """
 
 from __future__ import annotations
-
-import tempfile
 
 import torch
 
 from gunrock_tpu_torch.device import resolve
 from gunrock_tpu_torch.device.properties import NOT_MEASURED, get_device_properties
-from gunrock_tpu_torch.utils import profiler, trace_stats
+from gunrock_tpu_torch.utils import trace_stats
 from gunrock_tpu_torch.utils.timer import Timer
 
 
@@ -45,20 +47,17 @@ def time_ms(device, fn, n: int) -> float:
 
 def device_ms(device, fn, n: int):
     """The card's busy milliseconds per call of ``fn``, summed over the
-    device-side events of a trace of ``n`` calls; "not measured" on the
-    CPU or where three traces in a row hold no device events (a trace
-    taken right after another has come back without them on the card)."""
+    device-side events of a profile of ``n`` calls
+    (``trace_stats.device_profile``, the kernel table's method); "not
+    measured" on the CPU or where three profiles in a row hold no device
+    events. (Summing a chrome trace's events instead read 0.63-0.65 of
+    this for the same calls late in a long process, on an H100.)"""
     if resolve(device).type != "cuda":
         return NOT_MEASURED
-    fn()
     for _ in range(3):
-        with tempfile.TemporaryDirectory() as log_dir:
-            with profiler.trace(log_dir):
-                for _ in range(n):
-                    fn()
-            busy = trace_stats.device_busy_ms(log_dir)
-        if busy is not None:
-            return busy / n
+        prof = trace_stats.device_profile(lambda: [fn() for _ in range(n)])
+        if "busy_us" in prof:
+            return prof["busy_us"] / n / 1e3
     return NOT_MEASURED
 
 
