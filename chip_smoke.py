@@ -35,7 +35,12 @@ Phases, each raising on failure:
    whole range: the three semirings, unit and valued, a full, a 10% and an
    empty frontier with and without out_mask, at W=2048/C=256 and
    W=4096/C=1024, at the edge shapes also with spans of 3 chunks, with
-   C=125 (scalar loads) and edgeless.
+   C=125 (scalar loads) and edgeless. Likewise the span kernels of the
+   fused HITS pass (unit push layouts: padding slots, spans of 3 chunks,
+   C=125, edgeless; at R-MAT 18 W=4096/C=1024 and W=2048/C=256) and of the
+   frontier-sparse SpMM (K = 1, 8, 32, 33 and 512; a full, a 10% and an
+   empty frontier with and without out_mask; one-hot, signed-delta and
+   float X; at R-MAT 18 over greedy coloring's layout).
    Then the edge shapes again, 20 times, on the range-checking build.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
@@ -317,6 +322,100 @@ def compare_span_kernels(torch, layouts, keys) -> dict:
                              active.float(), active, "plus_times",
                              out_mask=half, unit=True)
             record(torch, errs, b1, got, want, True, f"0/1 {key} {front}")
+    return errs
+
+
+def compare_hits_spmm_spans(torch, layouts, b8_keys, b5_keys, ks,
+                            slice_k: int) -> dict:
+    """B8 (the fused HITS pass) and B5 (the frontier-sparse SpMM), the span
+    kernels, against their plain versions. B8 over each layout of
+    ``b8_keys`` (unit push layouts: padding slots in the chunks' tails,
+    which the auth side must skip by the row sentinel) on mixed-sign auth
+    with exact zeros and positive hub, both sums by :func:`sum_check`. B5
+    over each layout of ``b5_keys`` at every K of ``ks``: a full, a 10% and
+    an empty frontier, each with and without a 50% out_mask, on one-hot X
+    and signed one-hot deltas (zero off the frontier, as coloring makes
+    them) and on float X (nonzero everywhere: an active chunk's inactive
+    sources count too); exact where the values and X are small integers,
+    else :func:`sum_check`. The plain version is held against the kernel
+    in slices of ``slice_k`` columns (it is column-separable), so that its
+    [slots, K] intermediates stay small at R-MAT 18. An edgeless layout
+    must give zeros. Returns {kernel: max abs error}."""
+    from gunrock_tpu_torch.ops.kernels import chunkplan, hits_fused, spmm
+    from gunrock_tpu_torch.ops.kernels.layout import slot_indices
+
+    errs = {}
+
+    def keep(name, e):
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    name = "hits_fused_pass"
+    for key in b8_keys:
+        L = layouts[key]
+        V, dev = L.n_vertices, L.device
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        auth = torch.randn(V, device=dev, generator=gen)
+        auth = torch.where(torch.rand(V, device=dev, generator=gen) < 0.2,
+                           0.0, auth)
+        hub = torch.rand(V, device=dev, generator=gen)
+        (h_k, a_k), (h_p, a_p) = both(torch, hits_fused.hits_fused_pass,
+                                      hits_fused.hits_fused_pass_plain, L,
+                                      auth, hub)
+        if L.n_chunks == 0:
+            if bool(h_k.any()) or bool(a_k.any()):
+                raise AssertionError(f"{name} {key}: edgeless layout, not 0")
+            keep(name, 0.0)
+            continue
+        src, dst, _ = slot_indices(L)
+        what = f"{name} {key} W={L.window}/C={L.chunk} P-spans={L.n_spans}"
+        keep(name, sum_check(torch, f"{what} hub_raw", h_k, src,
+                             auth[dst].double(), h_p))
+        keep(name, sum_check(torch, f"{what} auth_raw", a_k, dst,
+                             hub[src].double(), a_p))
+
+    name = "bucketed_spmm_sparse"
+    for key in b5_keys:
+        L = layouts[key]
+        V, dev = L.n_vertices, L.device
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        int_values = bool(torch.equal(L.values, L.values.round()))
+        fronts = {"full": torch.ones(V, dtype=torch.bool, device=dev),
+                  "10%": torch.rand(V, device=dev, generator=gen) < 0.1,
+                  "empty": torch.zeros(V, dtype=torch.bool, device=dev)}
+        half = torch.rand(V, device=dev, generator=gen) < 0.5
+        for k in ks:
+            onehot = torch.nn.functional.one_hot(
+                torch.randint(0, k, (V,), device=dev, generator=gen), k).float()
+            sign = torch.randint(-1, 2, (V, 1), device=dev, generator=gen)
+            xs = {"one-hot": onehot, "signed": onehot * sign,
+                  "float": torch.randn((V, k), device=dev, generator=gen)}
+            for front, active in fronts.items():
+                for om in (None, half):
+                    ch_act = (chunkplan.chunk_activity_plain(L, active, om)[0]
+                              if L.n_chunks else None)
+                    for xk, x in xs.items():
+                        if xk != "float":
+                            x = torch.where(active[:, None], x, 0.0)
+                        what = (f"{name} {key} W={L.window}/C={L.chunk} K={k} "
+                                f"{front} out_mask={om is not None} {xk}")
+                        got = spmm.bucketed_spmm_sparse(L, x, active, om)
+                        torch.cuda.synchronize()
+                        if L.n_chunks == 0:
+                            if bool(got.any()):
+                                raise AssertionError(f"{what}: edgeless, not 0")
+                            keep(name, 0.0)
+                            continue
+                        for j in range(0, k, slice_k):
+                            xj = x[:, j:j + slice_k].contiguous()
+                            want = spmm.bucketed_spmm_sparse_plain(L, xj, active,
+                                                                   om)
+                            gj = got[:, j:j + slice_k].contiguous()
+                            if int_values and xk != "float":
+                                record(torch, errs, name, gj, want, True, what)
+                            else:
+                                keep(name, sum_check(
+                                    torch, f"{what} columns {j}+", gj,
+                                    *layout_terms(L, xj, False, ch_act), want))
     return errs
 
 
@@ -887,6 +986,19 @@ def check_edge_shapes(torch, dev) -> None:
             "valued", "neg", "neg_p3", "odd_chunk", "empty_row",
             "edgeless")).items():
         errs[name] = max(errs.get(name, 0.0), e)
+    # B8 and B5 on their span tables: several spans per block (P = 3) and
+    # scalar loads (C = 125, no multiple of 4) too
+    h = graph.host
+    layouts["hits_p3"] = layouts["hits"].with_span_chunks(3)
+    layouts["hits_odd"] = build_bucketed_layout(
+        h["edge_src"], h["col_indices"], np.ones(graph.n_edges, np.float32),
+        V, window=W, chunk=125, device=dev)
+    layouts["rank_p3"] = layouts["rank"].with_span_chunks(3)
+    for name, e in compare_hits_spmm_spans(
+            torch, layouts, ("hits", "hits_p3", "hits_odd", "edgeless"),
+            ("rank", "rank_p3", "odd_chunk", "edgeless"), (1, 8, 32, 33, 512),
+            512).items():
+        errs[name] = max(errs.get(name, 0.0), e)
     x = torch.ones(V, device=dev)
     act = torch.ones(V, dtype=torch.bool, device=dev)
     if not (bool((semiring.bucketed_semiring_spmv_sparse(
@@ -916,7 +1028,7 @@ def check_edge_shapes(torch, dev) -> None:
     torch.cuda.synchronize()
     print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
           f"negative values; an empty row window; edgeless; spans of 3 "
-          f"chunks; C=125): max abs err {errs}")
+          f"chunks; C=125; B5 at K=1, 8, 32, 33, 512): max abs err {errs}")
 
 
 def compare_probe_kernels(torch, layouts, dev) -> dict:
@@ -1030,6 +1142,8 @@ def check_kernels(torch, graph, layouts):
 
     errs = compare_kernels(torch, graph, layouts, K)
     span_errs = compare_span_kernels(torch, layouts, ("valued", "pr"))
+    span_errs.update(compare_hits_spmm_spans(
+        torch, layouts, ("hits", "geo"), ("rank",), (1, 8, 32, 33, 512), 64))
     dev = graph.device
     V = graph.n_vertices
     lay = layouts["unit"]
@@ -1204,13 +1318,22 @@ def family_kernel_rows(torch, graph, layouts, timed) -> dict:
                       layouts[key], xk, sr, unit=key == "unit")))
 
     # B8 on the W=4096/C=1024 unit push layout; the library computes the
-    # same two sums with two calls, A.auth and A^T.hub
+    # same two sums in one call, [[0, A], [A^T, 0]] . (hub; auth) =
+    # (A.auth; A^T.hub), and, for comparison, in two, A.auth and A^T.hub
     lay = layouts["hits"]
     auth = torch.rand(V, device=dev, generator=gen)
     hub = torch.rand(V, device=dev, generator=gen)
     ones = torch.ones(E, device=dev)
     A = csr(graph.row_offsets, graph.col_indices, ones)
     A_t = csr(graph.csc_offsets, graph.csc_rows, ones)
+    src, dst = graph.edge_src.long(), graph.col_indices.long()
+    M = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([src, V + dst]), torch.cat([V + dst, src])]),
+        torch.cat([ones, ones]), size=(2 * V, 2 * V)).coalesce().to_sparse_csr()
+    hub_auth = torch.cat([hub, auth])[:, None]
+    max_abs_err(torch, torch.cat(hits_fused.hits_fused_pass(lay, auth, hub)),
+                torch.sparse.mm(M, hub_auth)[:, 0], False, rtol=1e-4,
+                what="hits_fused_pass vs torch.sparse.mm")
     b, by = bound_ms(8 * n_real(lay) + 8 * lay.n_chunks + 4 * 4 * V,
                      2 * n_real(lay))
     rows["hits_fused_pass"] = dict(
@@ -1223,9 +1346,11 @@ def family_kernel_rows(torch, graph, layouts, timed) -> dict:
         plain_ms=time_ms(torch, lambda: hits_fused.hits_fused_pass_plain(
             lay, auth, hub)),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: (torch.sparse.mm(A, auth[:, None]),
-                                           torch.sparse.mm(A_t, hub[:, None]))),
-        library="torch.sparse.mm x2 (A.auth, A^T.hub), two calls")
+        library_ms=time_ms(torch, lambda: torch.sparse.mm(M, hub_auth)),
+        library="torch.sparse.mm ([[0, A], [A^T, 0]] . (hub; auth)), one call",
+        library_two_calls_ms=time_ms(
+            torch, lambda: (torch.sparse.mm(A, auth[:, None]),
+                            torch.sparse.mm(A_t, hub[:, None]))))
 
     # SSSP push step on the largest frontier of the search from the top
     # source that the DO switch pushes (out-edges and size under E/192)
@@ -1263,7 +1388,7 @@ def frontier_kernel_rows(torch, graph, layouts, timed) -> tuple:
     import numpy as np
 
     from gunrock_tpu_torch.algorithms import color
-    from gunrock_tpu_torch.ops.kernels import mst_min, semiring, spmm
+    from gunrock_tpu_torch.ops.kernels import chunkplan, mst_min, semiring, spmm
 
     dev = graph.device
     V = graph.n_vertices
@@ -1328,6 +1453,24 @@ def frontier_kernel_rows(torch, graph, layouts, timed) -> tuple:
           time_ms(torch, lambda: spmm.bucketed_spmm_sparse(rlay, xr, full,
                                                            full)),
           "torch.sparse.mm:", time_ms(torch, lambda: torch.sparse.mm(A, xr)))
+    ulay = layouts["unit"]
+    offs = graph.row_offsets.long()
+    e0, e1 = int(offs[2048]), int(offs[2560])
+    c = graph.col_indices[e0:e1].long()
+    xs = torch.zeros((V, 512), device=dev)
+    xs[c, graph.edge_src[e0:e1].long() - 2048] = 1.0
+    act = torch.zeros(V, dtype=torch.bool, device=dev)
+    act[c] = True
+    A_pull = torch.sparse_csr_tensor(
+        graph.csc_offsets.long(), graph.csc_rows.long(),
+        torch.ones(graph.n_edges, device=dev), size=(V, V))
+    print("bucketed_spmm_sparse SpGEMM row block 4 (K=512, unit pull "
+          f"layout, {int(chunkplan.chunk_activity(ulay, act)[0].sum())} "
+          "active chunks), ms:",
+          time_ms(torch, lambda: spmm.bucketed_spmm_sparse(ulay, xs, act,
+                                                           exact=True), 5),
+          "torch.sparse.mm:", time_ms(torch, lambda: torch.sparse.mm(A_pull, xs), 5))
+    del xs
     tenth = torch.rand(V, device=dev, generator=gen) < 0.1
     x10 = torch.where(tenth[:, None], x1, 0.0)
     print("bucketed_spmm_sparse one-hot X, 10% changed, 50% unstable, ms:",

@@ -127,6 +127,82 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return s;
 }
 
+// The second pass of the span kernels (semiring.cu, hits_fused.cu): one
+// block of kReduceWarps warps writes entries [r_base, r_base + kStrip) of
+// one output block `y` (a window of `window` floats, window % 4 == 0),
+// combining with Op::apply the touched partials of spans [lo, hi): span s
+// holds `window` floats at partial + s * window, and touched[s] says
+// whether it was written. Warp g takes spans lo + g, lo + g + 16, ...: one
+// touched flag per lane and a ballot name up to 32 of them, whose partials
+// it loads two at a time (the chain of loads of a hub block's many spans,
+// not the bytes, sets the pass's time); a lane holds four float4s of the
+// strip, 128 entries apart. Entries no touched span reaches get `e`. Every
+// thread of the block must call it.
+constexpr int kReduceWarps = 16;
+constexpr int kLaneVecs = 4;
+constexpr int kStrip = 128 * kLaneVecs;
+
+template <typename Op>
+__device__ __forceinline__ void reduce_span_strip(
+    const float* __restrict__ partial, const int* __restrict__ touched,
+    int lo, int hi, int n_spans, int window, int r_base, float e,
+    float* __restrict__ y) {
+  __shared__ float4 part[kReduceWarps][kLaneVecs][32];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int r0 = r_base + 4 * lane;  // window % 4 == 0: all 4 or none
+  const float4 ident = make_float4(e, e, e, e);
+  float4 acc[kLaneVecs];
+#pragma unroll
+  for (int k = 0; k < kLaneVecs; ++k) acc[k] = ident;
+  for (int base = lo + g; base < hi; base += 32 * kReduceWarps) {
+    const int mine = base + kReduceWarps * lane;
+    unsigned todo = __ballot_sync(0xffffffffu, mine < hi &&
+                                  GR_IN_RANGE(mine, n_spans) && touched[mine]);
+    while (todo) {  // warp-uniform
+      float4 p[2][kLaneVecs];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        int s = -1;
+        if (todo) {
+          s = base + kReduceWarps * (__ffs(todo) - 1);
+          todo &= todo - 1u;
+        }
+        const float* src = partial + static_cast<long>(s) * window;
+#pragma unroll
+        for (int k = 0; k < kLaneVecs; ++k) {
+          const int r = r0 + 128 * k;
+          p[j][k] = s >= 0 && r < window
+                        ? *reinterpret_cast<const float4*>(src + r)
+                        : ident;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int k = 0; k < kLaneVecs; ++k) acc[k] = Op::apply(acc[k], p[j][k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kLaneVecs; ++k) part[g][k][lane] = acc[k];
+  __syncthreads();
+  if (g != 0) return;
+#pragma unroll
+  for (int k = 0; k < kLaneVecs; ++k) {
+    const int r = r0 + 128 * k;
+    if (r >= window) continue;
+    for (int w = 1; w < kReduceWarps; ++w)
+      acc[k] = Op::apply(acc[k], part[w][k][lane]);
+    *reinterpret_cast<float4*>(y + r) = acc[k];
+  }
+}
+
+// Op of reduce_span_strip for sums.
+struct Add4 {
+  static __device__ __forceinline__ float4 apply(float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+};
+
 // Grid of `kThreads`-thread blocks covering `n` items, at most `cap` blocks
 // (the kernels loop with a grid stride past that).
 inline int grid_for(long n, int cap) {

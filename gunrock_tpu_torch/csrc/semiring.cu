@@ -99,9 +99,6 @@ namespace {
 
 enum Semiring { kPlusTimes = 0, kMinPlus = 1, kMaxTimes = 2 };
 enum Mode { kFull = 0, kGather = 1, kStream = 2 };
-constexpr int kReduceWarps = 16;  // reduce_spans: warps per block
-constexpr int kLaneVecs = 4;  // reduce_spans: float4s of y per lane
-constexpr int kStrip = 128 * kLaneVecs;  // reduce_spans: y entries per block
 
 struct Args {
   const int* span_first_chunk;  // int[n_spans + 1]
@@ -257,64 +254,22 @@ __global__ void __launch_bounds__(gr::kThreads) span_pass(const Args a) {
 }
 
 // y's entries [strip*512, strip*512 + 512) of row block rb = blockIdx.x:
-// the touched partials of rb's spans combined, the identity if none. Warp g
-// takes spans lo + g, lo + g + 16, ...: one touched flag per lane and a
-// ballot name up to 32 of them, whose partials it loads two at a time; a
-// lane holds four float4s of the strip, 128 entries apart.
+// the touched partials of rb's spans combined (gr::reduce_span_strip), the
+// identity if none.
 template <int kSemiring>
-__global__ void __launch_bounds__(kReduceWarps * 32) reduce_spans(const Args a) {
-  __shared__ float4 part[kReduceWarps][kLaneVecs][32];
+struct Combine {
+  static __device__ __forceinline__ float4 apply(float4 a, float4 b) {
+    return combine4<kSemiring>(a, b);
+  }
+};
+
+template <int kSemiring>
+__global__ void __launch_bounds__(gr::kReduceWarps * 32) reduce_spans(const Args a) {
   const int rb = blockIdx.x;
-  const int lo = a.rb_first_span[rb], hi = a.rb_first_span[rb + 1];
-  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  const int r0 = blockIdx.y * kStrip + 4 * lane;  // W % 4 == 0: all 4 or none
-  const float e = identity<kSemiring>();
-  const float4 ident = make_float4(e, e, e, e);
-  float4 acc[kLaneVecs];
-#pragma unroll
-  for (int k = 0; k < kLaneVecs; ++k) acc[k] = ident;
-  for (int base = lo + g; base < hi; base += 32 * kReduceWarps) {
-    const int mine = base + kReduceWarps * lane;
-    unsigned todo = __ballot_sync(0xffffffffu, mine < hi &&
-                                  GR_IN_RANGE(mine, a.n_spans) &&
-                                  a.touched[mine]);
-    while (todo) {  // warp-uniform
-      float4 p[2][kLaneVecs];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        int s = -1;
-        if (todo) {
-          s = base + kReduceWarps * (__ffs(todo) - 1);
-          todo &= todo - 1u;
-        }
-        const float* src = a.partial + static_cast<long>(s) * a.window;
-#pragma unroll
-        for (int k = 0; k < kLaneVecs; ++k) {
-          const int r = r0 + 128 * k;
-          p[j][k] = s >= 0 && r < a.window
-                        ? *reinterpret_cast<const float4*>(src + r)
-                        : ident;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int k = 0; k < kLaneVecs; ++k)
-          acc[k] = combine4<kSemiring>(acc[k], p[j][k]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kLaneVecs; ++k) part[g][k][lane] = acc[k];
-  __syncthreads();
-  if (g != 0) return;
-#pragma unroll
-  for (int k = 0; k < kLaneVecs; ++k) {
-    const int r = r0 + 128 * k;
-    if (r >= a.window) continue;
-    for (int w = 1; w < kReduceWarps; ++w)
-      acc[k] = combine4<kSemiring>(acc[k], part[w][k][lane]);
-    *reinterpret_cast<float4*>(a.y + static_cast<long>(rb) * a.window + r) = acc[k];
-  }
+  gr::reduce_span_strip<Combine<kSemiring>>(
+      a.partial, a.touched, a.rb_first_span[rb], a.rb_first_span[rb + 1],
+      a.n_spans, a.window, blockIdx.y * gr::kStrip, identity<kSemiring>(),
+      a.y + static_cast<long>(rb) * a.window);
 }
 
 // Floor modes' second pass, one block per row block rb: the sum of t_span
@@ -358,8 +313,8 @@ template <int kSemiring, bool kUnit, bool kSparse>
 int pull(const Args& a, cudaStream_t s) {
   const int err = launch_spans<kSemiring, kUnit, kSparse, kFull>(a, s);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.n_row_blocks, (a.window + kStrip - 1) / kStrip);
-  reduce_spans<kSemiring><<<grid, kReduceWarps * 32, 0, s>>>(a);
+  const dim3 grid(a.n_row_blocks, (a.window + gr::kStrip - 1) / gr::kStrip);
+  reduce_spans<kSemiring><<<grid, gr::kReduceWarps * 32, 0, s>>>(a);
   return gr::finish(s);
 }
 

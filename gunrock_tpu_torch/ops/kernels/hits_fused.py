@@ -11,7 +11,10 @@ Both read the previous iteration's vectors, so one sweep computes both.
 Padding slots (``row_local == W``, ``col_local == 0``) take part in
 neither sum. Vertices no edge reaches get 0.
 
-CUDA source: ``csrc/hits_fused.cu``.
+CUDA source: ``csrc/hits_fused.cu``: one block per span of the layout's
+row span table (hub side) and of its column span table (auth side), each
+reducing into a window in shared memory, then a pass that combines each
+block's spans into ``hub_raw`` and ``auth_raw``.
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ import torch
 
 from gunrock_tpu_torch.ops.kernels import _build
 from gunrock_tpu_torch.ops.kernels.layout import BucketedEdges, slot_indices
+from gunrock_tpu_torch.ops.kernels.semiring import check_window
 
-_BLOCKS_PER_SM = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_hits_fused": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gr_hits_fused": [_I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -45,18 +49,26 @@ def hits_fused_pass(layout: BucketedEdges, auth: torch.Tensor,
         return hits_fused_pass_plain(layout, auth, hub)
     if dev.type != "cuda":
         raise ValueError(f"no HITS kernel for device {dev}")
-    hub_raw = torch.zeros(layout.n_row_blocks * W, dtype=torch.float32,
+    check_window(W)
+    hub_raw = torch.empty(layout.n_row_blocks * W, dtype=torch.float32,
                           device=dev)
-    auth_raw = torch.zeros(layout.n_col_blocks * W, dtype=torch.float32,
+    auth_raw = torch.empty(layout.n_col_blocks * W, dtype=torch.float32,
                            device=dev)
-    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
+    # the partial windows of the row spans and then the column spans, then
+    # their touched flags
+    n_spans = layout.n_spans + layout.n_col_spans
+    scratch = torch.empty(n_spans * (W + 1), dtype=torch.float32, device=dev)
     lib = _build.load("hits_fused", _SIGNATURES)
     err = lib.gr_hits_fused(
-        blocks, layout.n_chunks, _build.ptr(layout.chunk_rb),
-        _build.ptr(layout.chunk_cb), _build.ptr(layout.row_local),
-        _build.ptr(layout.col_local), _build.ptr(auth), _build.ptr(hub),
-        _build.ptr(hub_raw), _build.ptr(auth_raw), W, layout.chunk, V,
-        _build.stream(dev),
+        layout.n_spans, _build.ptr(layout.span_first_chunk),
+        _build.ptr(layout.rb_first_span), layout.n_col_spans,
+        _build.ptr(layout.chunk_by_cb), _build.ptr(layout.col_span_first_chunk),
+        _build.ptr(layout.cb_first_span), layout.n_chunks,
+        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
+        _build.ptr(layout.row_local), _build.ptr(layout.col_local),
+        _build.ptr(auth), _build.ptr(hub), _build.ptr(hub_raw),
+        _build.ptr(auth_raw), _build.ptr(scratch), W, layout.chunk, V,
+        layout.n_row_blocks, layout.n_col_blocks, _build.stream(dev),
     )
     _build.check(err, "hits_fused_pass")
     _build.LAUNCHES["hits_fused_pass"] += 1

@@ -22,6 +22,14 @@ range into spans of at most P chunks (``span_chunks``: about
 into its row window in shared memory. It is computed from ``chunk_rb``
 whenever a layout is made, so a layout carried over from the JAX package's
 arrays has it too; it is not one of ``DATA_FIELDS``.
+
+And a column span table beside it, for the kernels that scatter by column
+(the auth side of the fused HITS pass, ``csrc/hits_fused.cu``):
+``chunk_by_cb`` lists the chunk ids in column-block order (a stable
+argsort of ``chunk_cb``), and the same :func:`span_table` over
+``chunk_cb[chunk_by_cb]`` cuts each column block's run of that list into
+spans (``col_span_first_chunk`` indexes ``chunk_by_cb``;
+``cb_first_span`` names each column block's spans).
 """
 
 from __future__ import annotations
@@ -102,14 +110,20 @@ class BucketedEdges:
     # the span table (span_table): int32[n_spans + 1], int32[n_row_blocks + 1]
     span_first_chunk: torch.Tensor
     rb_first_span: torch.Tensor
+    # the column span table: int32[n_chunks] (chunk ids by column block),
+    # int32[n_col_spans + 1] (positions in chunk_by_cb),
+    # int32[n_col_blocks + 1]
+    chunk_by_cb: torch.Tensor
+    col_span_first_chunk: torch.Tensor
+    cb_first_span: torch.Tensor
 
     @classmethod
     def from_arrays(cls, arrays: dict, window: int, chunk: int, n_chunks: int,
                     n_row_blocks: int, n_col_blocks: int, n_vertices: int,
                     device=DEFAULT) -> "BucketedEdges":
         """Layout from the eight named numpy arrays (``DATA_FIELDS``) and
-        the six meta fields, with its span table at P = ``span_chunks``.
-        Bit words may come as uint32 or int32."""
+        the six meta fields, with its row and column span tables at P =
+        ``span_chunks``. Bit words may come as uint32 or int32."""
         dev = resolve(device)
         tensors = {}
         for name in DATA_FIELDS:
@@ -119,22 +133,20 @@ class BucketedEdges:
             else:
                 a = a.astype(_DTYPES[name])
             tensors[name] = torch.from_numpy(a).to(dev)
-        spans = span_table(arrays["chunk_rb"], int(n_row_blocks),
-                           span_chunks(int(chunk)))
+        spans = _span_tables(arrays["chunk_rb"], arrays["chunk_cb"],
+                             int(n_row_blocks), int(n_col_blocks),
+                             span_chunks(int(chunk)), dev)
         return cls(**tensors, window=int(window), chunk=int(chunk),
                    n_chunks=int(n_chunks), n_row_blocks=int(n_row_blocks),
                    n_col_blocks=int(n_col_blocks), n_vertices=int(n_vertices),
-                   span_first_chunk=torch.from_numpy(spans[0]).to(dev),
-                   rb_first_span=torch.from_numpy(spans[1]).to(dev))
+                   **spans)
 
     def with_span_chunks(self, max_chunks: int) -> "BucketedEdges":
-        """The same layout with its span table cut at P = ``max_chunks``
-        (to measure the pull at another P)."""
-        spans = span_table(self.chunk_rb.cpu().numpy(), self.n_row_blocks,
-                           max_chunks)
-        return dataclasses.replace(
-            self, span_first_chunk=torch.from_numpy(spans[0]).to(self.device),
-            rb_first_span=torch.from_numpy(spans[1]).to(self.device))
+        """The same layout with both span tables cut at P = ``max_chunks``
+        (to measure the span kernels at another P)."""
+        return dataclasses.replace(self, **_span_tables(
+            self.chunk_rb.cpu().numpy(), self.chunk_cb.cpu().numpy(),
+            self.n_row_blocks, self.n_col_blocks, max_chunks, self.device))
 
     @property
     def device(self) -> torch.device:
@@ -143,6 +155,24 @@ class BucketedEdges:
     @property
     def n_spans(self) -> int:
         return self.span_first_chunk.numel() - 1
+
+    @property
+    def n_col_spans(self) -> int:
+        return self.col_span_first_chunk.numel() - 1
+
+
+def _span_tables(chunk_rb, chunk_cb, n_row_blocks: int, n_col_blocks: int,
+                 max_chunks: int, device) -> dict:
+    """The row and column span tables at P = ``max_chunks``, as the
+    layout's fields on ``device``."""
+    cb = np.asarray(chunk_cb)
+    by_cb = np.argsort(cb, kind="stable").astype(np.int32)
+    rows = span_table(chunk_rb, n_row_blocks, max_chunks)
+    cols = span_table(cb[by_cb], n_col_blocks, max_chunks)
+    names = ("span_first_chunk", "rb_first_span", "chunk_by_cb",
+             "col_span_first_chunk", "cb_first_span")
+    return {k: torch.from_numpy(a).to(device)
+            for k, a in zip(names, (*rows, by_cb, *cols))}
 
 
 def _pack_subblock_bits(chunk_ids, local, window: int, n_chunks: int):

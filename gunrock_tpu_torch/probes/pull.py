@@ -1,6 +1,8 @@
-"""Time the semiring pull, B1 (``bucketed_semiring_spmv_sparse``) and B3
-(``bucketed_semiring_spmv``), at R-MAT scale 18 (edge factor 16, seed 1,
-degree-sorted), and sweep the span length P of the span table.
+"""Time the span kernels at R-MAT scale 18 (edge factor 16, seed 1,
+degree-sorted): the semiring pull, B1 (``bucketed_semiring_spmv_sparse``)
+and B3 (``bucketed_semiring_spmv``), the fused HITS pass, B8
+(``hits_fused_pass``), and the frontier-sparse SpMM, B5
+(``bucketed_spmm_sparse``); and sweep the span length P and B5's K tile.
 
 One JSON line per case, each with the card's name and power limit:
 
@@ -12,22 +14,43 @@ One JSON line per case, each with the card's name and power limit:
   b3_valued  valued plus_times over the W=2048/C=256 pull layout (the floor
              probe's layout, ``probes/v5_floor.py``)
   b3_min     min_plus over the W=2048/C=256 pull layout (the dense SSSP)
+  b8_hits    B8 over the unit push layout at W=4096/C=1024 (HITS), random
+             auth and hub
+  b5_color   B5 over greedy coloring's layout (W=2048/C=256, 0/1 values),
+             K=32, every vertex changed and in out_mask, X the one-hot of
+             the rank-init colors: coloring's first round
+  b5_color_tenth  the same with 10% of the rows changed (X zero elsewhere)
+             and a 50% out_mask
+  b5_float   the same layout, K=32, random X, full frontier
+  b5_spgemm  B5 as the dense SpGEMM count calls it: K=512 columns, X the
+             unit columns of A's row block 4 (rows 2048-2559) over the
+             unit pull layout, its columns active
+  b5_spgemm_hub  the same for row block 0 (the hubs' rows)
 
 with ``ms`` (CUDA events, mean of ``--num_runs`` warm calls), ``device_ms``
 (the card's busy time per call) and ``kernels`` (the device microseconds
 per call of each kernel the call ran), both from one
 ``utils/trace_stats.device_profile`` of ``--num_runs`` calls, ``bound_ms``
-(real slots only) and,
-for the plus_times cases with a full frontier, ``sparse_mm_ms``: one
-``torch.sparse.mm`` over the same matrix.
+(real slots only; for B5 those of the active chunks) and, where PyTorch
+has one call computing the same function, its time: ``sparse_mm_ms``, one
+``torch.sparse.mm`` over the same matrix (for B8 over [[0, A], [A^T, 0]]
+times (hub; auth), beside ``sparse_mm_two_calls_ms``, A.auth and A^T.hub).
+B5's lines add ``active_chunks``.
 
-``--sweep 4,8,16,32`` adds one line per P: b3_valued, b3_pr and b1_full with
-the table cut at P (``BucketedEdges.with_span_chunks``). On a tree without
-a span table the sweep is skipped, so the same file times an earlier
-tree's kernels.
+``--greedy`` adds one line, ``greedy_passes``: the active chunks (of the
+layout's), changed rows and nonzero X rows of every B5 pass of one greedy
+coloring (``color.run``, which runs its loop twice, warm-up and timed;
+the line keeps the timed run's passes).
+
+``--sweep 4,8,16,32`` adds one line per P: b3_valued, b3_pr, b1_full, b8_hits
+and b5_color with both span tables cut at P
+(``BucketedEdges.with_span_chunks``); ``--k_tiles 4,8,16`` one line per K
+tile for b5_color, b5_float and b5_spgemm. On a tree without a span table,
+a column span table or B5's K tile, those lines are skipped, so the same
+file times an earlier tree's kernels.
 
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
-       [--sweep 4,8,16,32] [--device cuda]
+       [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--device cuda]
 """
 
 from __future__ import annotations
@@ -61,10 +84,12 @@ def _profile(fn, n: int, dev):
     return NOT_MEASURED, NOT_MEASURED
 
 
-def cases(graph, layouts: dict, gen) -> dict:
-    """{case: (call, bytes the call must move, operations, library call or
-    None)} at the layouts ``unit``, ``valued``, ``pr`` and ``big``."""
-    from gunrock_tpu_torch.ops.kernels import semiring
+def cases(graph, layouts: dict, gen, k_tile=None) -> dict:
+    """{case: (call, bytes the call must move, operations, {name: library
+    call}, extra keys)} at the layouts ``unit``, ``valued``, ``pr``,
+    ``big``, ``hits`` and ``color``; B5's calls take the K tile
+    ``k_tile`` when given."""
+    from gunrock_tpu_torch.ops.kernels import chunkplan, hits_fused, semiring, spmm
 
     dev = graph.device
     V = graph.n_vertices
@@ -99,58 +124,189 @@ def cases(graph, layouts: dict, gen) -> dict:
         return 12 * _n_real(lay) + 8 * lay.n_chunks + 4 * V + 4 * V
 
     xf = full.float()
-    return {
+    out = {
         "b1_full": (sparse(full, full), b1_bytes(unit), _n_real(unit),
-                    lambda: torch.sparse.mm(A_unit, xf[:, None])),
-        "b1_tenth": (sparse(tenth, half), None, None, None),
-        "b1_empty": (sparse(none, full), None, None, None),
+                    {"sparse_mm": lambda: torch.sparse.mm(A_unit, xf[:, None])}),
+        "b1_tenth": (sparse(tenth, half), None, None, {}),
+        "b1_empty": (sparse(none, full), None, None, {}),
         "b3_pr": (dense(pr, x, "plus_times"), b3_bytes(pr), 2 * _n_real(pr),
-                  lambda: torch.sparse.mm(A, x[:, None])),
+                  {"sparse_mm": lambda: torch.sparse.mm(A, x[:, None])}),
         "b3_valued": (dense(valued, x, "plus_times"), b3_bytes(valued),
-                      2 * _n_real(valued), lambda: torch.sparse.mm(A, x[:, None])),
+                      2 * _n_real(valued),
+                      {"sparse_mm": lambda: torch.sparse.mm(A, x[:, None])}),
         "b3_min": (dense(big, xb, "min_plus"), b3_bytes(big), 2 * _n_real(big),
-                   None),
+                   {}),
     }
+    out = {k: (*v, {}) for k, v in out.items()}
+
+    # B8: hub_raw = A.auth and auth_raw = A^T.hub in one call, as
+    # [[0, A], [A^T, 0]] . (hub; auth)
+    hits = layouts["hits"]
+    auth = torch.rand(V, device=dev, generator=gen)
+    hub = torch.rand(V, device=dev, generator=gen)
+    src, dst = graph.edge_src.long(), graph.col_indices.long()
+    ones = torch.ones(graph.n_edges, device=dev)
+    A_push = torch.sparse_csr_tensor(graph.row_offsets.long(), dst, ones,
+                                     size=(V, V))
+    A_t = torch.sparse_csr_tensor(graph.csc_offsets.long(),
+                                  graph.csc_rows.long(), ones, size=(V, V))
+    M = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([src, V + dst]), torch.cat([V + dst, src])]),
+        torch.cat([ones, ones]), size=(2 * V, 2 * V)).coalesce().to_sparse_csr()
+    hub_auth = torch.cat([hub, auth])[:, None]
+    out["b8_hits"] = (
+        lambda: hits_fused.hits_fused_pass(hits, auth, hub),
+        8 * _n_real(hits) + 8 * hits.n_chunks + 4 * 4 * V, 2 * _n_real(hits),
+        {"sparse_mm": lambda: torch.sparse.mm(M, hub_auth),
+         "sparse_mm_two_calls": lambda: (torch.sparse.mm(A_push, auth[:, None]),
+                                         torch.sparse.mm(A_t, hub[:, None]))},
+        {})
+
+    # B5 at coloring's and SpGEMM's shapes
+    lay, rank = layouts["color"]
+    K = 32
+    x1 = torch.nn.functional.one_hot(torch.clamp(rank, max=K - 1).long(),
+                                     K).float()
+    xr = torch.rand((V, K), device=dev, generator=gen)
+    x10 = torch.where(tenth[:, None], x1, 0.0)
+    lsrc, ldst = _sym_edges(graph)
+    A_color = torch.sparse_coo_tensor(
+        torch.stack([lsrc, ldst]), (ldst < lsrc).float(),
+        size=(V, V)).coalesce().to_sparse_csr()
+    kw = {} if k_tile is None else {"k_tile_cols": k_tile}
+
+    def b5(L, xk, act, om, library):
+        ch_act = chunkplan.chunk_activity(L, act, om)[0]
+        n_act = int(ch_act.sum())
+        real = L.row_local.view(-1, L.chunk)[ch_act] != L.window
+        n_real = int(real.sum())
+        Kx = xk.shape[1]
+        return (lambda: spmm.bucketed_spmm_sparse(L, xk, act, om, **kw),
+                12 * n_real + 8 * n_act + 2 * 4 * V * Kx + 2 * V,
+                2 * n_real * Kx, library,
+                {"active_chunks": n_act, "k": Kx})
+
+    out["b5_color"] = b5(lay, x1, full, full,
+                         {"sparse_mm": lambda: torch.sparse.mm(A_color, x1)})
+    out["b5_color_tenth"] = b5(lay, x10, tenth, half, {})
+    out["b5_float"] = b5(lay, xr, full, full,
+                         {"sparse_mm": lambda: torch.sparse.mm(A_color, xr)})
+    offs = graph.row_offsets.long()
+    rows = min(512, V)  # the count's block of rows (fewer on a tiny graph)
+    for name, r0 in (("b5_spgemm", min(4 * rows, V - rows)),
+                     ("b5_spgemm_hub", 0)):
+        e0, e1 = int(offs[r0]), int(offs[r0 + rows])
+        c = graph.col_indices[e0:e1].long()
+        xs = torch.zeros((V, rows), device=dev)
+        xs[c, graph.edge_src[e0:e1].long() - r0] = 1.0
+        act = torch.zeros(V, dtype=torch.bool, device=dev)
+        act[c] = True
+        out[name] = b5(unit, xs, act, None,
+                       {"sparse_mm": lambda xs=xs: torch.sparse.mm(A_unit, xs)})
+    return out
+
+
+def _sym_edges(graph):
+    """(src, dst) int64 of greedy coloring's symmetrized loop-free edges, on
+    the graph's device."""
+    from gunrock_tpu_torch.algorithms import color
+
+    src, dst = color._sym_loopfree_edges(graph)
+    return (torch.from_numpy(src.astype("int64")).to(graph.device),
+            torch.from_numpy(dst.astype("int64")).to(graph.device))
 
 
 def time_case(name: str, case, n: int, dev, **extra) -> dict:
     from gunrock_tpu_torch.utils.roofline import bound_ms
 
-    fn, n_bytes, n_ops, library = case
-    row = {"probe": "pull", "case": name, **extra, "ms": time_ms(dev, fn, n)}
+    fn, n_bytes, n_ops, library, keys = case
+    row = {"probe": "pull", "case": name, **keys, **extra,
+           "ms": time_ms(dev, fn, n)}
     row["device_ms"], row["kernels"] = _profile(fn, n, dev)
     if n_bytes is not None and dev.type == "cuda":  # the card's peaks
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, device=dev)
-    if library is not None:
-        row["sparse_mm_ms"] = time_ms(dev, library, n)
+    for lib_name, call in library.items():
+        row[f"{lib_name}_ms"] = time_ms(dev, call, n)
     row["device"] = device_label(dev)
     return row
 
 
-def sweep(graph, layouts: dict, spans: list, n: int, gen) -> list:
-    """The sweep's lines (see the module docstring); [] without a span
-    table."""
-    if not hasattr(layouts["unit"], "with_span_chunks"):
-        return []
+def sweep(graph, layouts: dict, spans: list, k_tiles: list, n: int,
+          gen) -> list:
+    """The sweep's lines (see the module docstring); the span lines only
+    with a span table, B8's and B5's only with a column span table, the
+    K-tile lines only where B5 takes a K tile."""
+    from gunrock_tpu_torch.ops.kernels import spmm
+
     rows = []
-    for p in spans:
-        cut = {k: lay.with_span_chunks(p) for k, lay in layouts.items()}
-        cs = cases(graph, cut, gen)
-        for name, key in (("b3_valued", "valued"), ("b3_pr", "pr"),
-                          ("b1_full", "unit")):
-            rows.append(time_case(name, cs[name], n, graph.device,
-                                  span_chunks=p, n_spans=cut[key].n_spans))
+    if spans and hasattr(layouts["unit"], "with_span_chunks"):
+        b85 = hasattr(layouts["unit"], "chunk_by_cb")
+        for p in spans:
+            cut = {k: (lay[0].with_span_chunks(p), lay[1]) if k == "color"
+                   else lay.with_span_chunks(p) for k, lay in layouts.items()}
+            cs = cases(graph, cut, gen)
+            for name, key in (("b3_valued", "valued"), ("b3_pr", "pr"),
+                              ("b1_full", "unit"), ("b8_hits", "hits"),
+                              ("b5_color", "color")):
+                if name[:2] in ("b8", "b5") and not b85:
+                    continue
+                lay = cut[key][0] if key == "color" else cut[key]
+                rows.append(time_case(name, cs[name], n, graph.device,
+                                      span_chunks=p, n_spans=lay.n_spans))
+    if k_tiles and hasattr(spmm, "K_TILES"):
+        for kt in k_tiles:
+            cs = cases(graph, layouts, gen, k_tile=kt)
+            for name in ("b5_color", "b5_float", "b5_spgemm"):
+                rows.append(time_case(name, cs[name], n, graph.device,
+                                      k_tile=kt))
     return rows
 
 
+def greedy_passes(graph) -> dict:
+    """The ``greedy_passes`` line: what each B5 pass of one greedy coloring
+    ran over, recorded by wrapping the kernel's entry point."""
+    from gunrock_tpu_torch.algorithms import color
+    from gunrock_tpu_torch.ops.kernels import chunkplan
+
+    kernel, passes = color.bucketed_spmm_sparse, []
+
+    def record(layout, x, active, out_mask=None, exact=False):
+        ch_act = chunkplan.chunk_activity(layout, active, out_mask)[0]
+        passes.append((int(ch_act.sum()), int(active.sum()),
+                       int((x != 0).any(dim=1).sum())))
+        return kernel(layout, x, active, out_mask=out_mask, exact=exact)
+
+    color.bucketed_spmm_sparse = record
+    try:
+        res = color.run(graph, seed=1, strategy="greedy", device=graph.device)
+    finally:
+        color.bucketed_spmm_sparse = kernel
+    timed = passes[len(passes) - res.iterations:]
+    return {"probe": "pull", "case": "greedy_passes",
+            "iterations": res.iterations,
+            "n_chunks": color._greedy_color_setup(graph)[0].n_chunks,
+            "active_chunks": [p[0] for p in timed],
+            "changed_rows": [p[1] for p in timed],
+            "nonzero_x_rows": [p[2] for p in timed],
+            "active_chunks_sum": sum(p[0] for p in timed)}
+
+
 def build_layouts(graph) -> dict:
-    from gunrock_tpu_torch.ops.kernels.layout import dense_window_chunk, pull_layout
+    from gunrock_tpu_torch.algorithms import color
+    from gunrock_tpu_torch.ops.kernels.layout import (
+        dense_window_chunk,
+        pull_layout,
+        push_layout,
+    )
     from gunrock_tpu_torch.ops.kernels.semiring import _BIG
 
     dense_w, dense_c = dense_window_chunk(graph.n_vertices) or (2048, 256)
     return {"unit": pull_layout(graph, unit=True), "valued": pull_layout(graph),
             "pr": pull_layout(graph, window=dense_w, chunk=dense_c),
-            "big": pull_layout(graph, pad_value=_BIG)}
+            "big": pull_layout(graph, pad_value=_BIG),
+            "hits": push_layout(graph, window=dense_w, chunk=dense_c,
+                                unit=True),
+            "color": color._greedy_color_setup(graph)}
 
 
 def main(argv=None) -> int:
@@ -161,6 +317,11 @@ def main(argv=None) -> int:
     p.add_argument("--num_runs", type=int, default=20)
     p.add_argument("--sweep", default="",
                    help="comma-separated span lengths P to time")
+    p.add_argument("--k_tiles", default="",
+                   help="comma-separated K tiles of B5 to time")
+    p.add_argument("--greedy", action="store_true",
+                   help="count each B5 pass's active chunks in one greedy "
+                        "coloring")
     p.add_argument("--device", default="cuda")
     ns = p.parse_args(argv)
     graph = probe_graph(ns.scale, ns.device)
@@ -170,8 +331,11 @@ def main(argv=None) -> int:
         print(json.dumps(time_case(name, case, ns.num_runs, graph.device)),
               flush=True)
     spans = [int(s) for s in ns.sweep.split(",") if s]
-    for row in sweep(graph, layouts, spans, ns.num_runs, gen):
+    k_tiles = [int(s) for s in ns.k_tiles.split(",") if s]
+    for row in sweep(graph, layouts, spans, k_tiles, ns.num_runs, gen):
         print(json.dumps(row), flush=True)
+    if ns.greedy:
+        print(json.dumps(greedy_passes(graph)), flush=True)
     return 0
 
 

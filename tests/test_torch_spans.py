@@ -195,20 +195,30 @@ def test_span_model_matches_plain(case, semiring, p):
 
 def test_pull_probe_runs_on_cpu(capsys):
     """The pull probe's command end to end on the CPU (plain versions): one
-    line per case, then the sweep's lines at each P; no device time is
-    claimed."""
+    line per case, then the sweep's lines at each P and each K tile; no
+    device time is claimed."""
     import json
 
     from gunrock_tpu_torch.probes import pull
     from gunrock_tpu_torch.probes.v5_floor import probe_graph
 
     assert pull.main(["--scale", "8", "--device", "cpu", "--num_runs", "1",
-                      "--sweep", "2,64"]) == 0
+                      "--sweep", "2,64", "--k_tiles", "4"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    cases = ["b1_full", "b1_tenth", "b1_empty", "b3_pr", "b3_valued", "b3_min"]
-    assert [r["case"] for r in rows[:6]] == cases
-    assert [r.get("span_chunks") for r in rows[6:]] == [2] * 3 + [64] * 3
-    assert [r["n_spans"] for r in rows[6:9]] == [
-        pull.build_layouts(probe_graph(8, "cpu"))[k].with_span_chunks(2).n_spans
-        for k in ("valued", "pr", "unit")]
+    cases = ["b1_full", "b1_tenth", "b1_empty", "b3_pr", "b3_valued", "b3_min",
+             "b8_hits", "b5_color", "b5_color_tenth", "b5_float", "b5_spgemm",
+             "b5_spgemm_hub"]
+    assert [r["case"] for r in rows[:12]] == cases
+    swept = ["b3_valued", "b3_pr", "b1_full", "b8_hits", "b5_color"]
+    assert [r["case"] for r in rows[12:22]] == swept * 2
+    assert [r.get("span_chunks") for r in rows[12:22]] == [2] * 5 + [64] * 5
+    layouts = pull.build_layouts(probe_graph(8, "cpu"))
+    assert [r["n_spans"] for r in rows[12:17]] == [
+        layouts[k].with_span_chunks(2).n_spans
+        for k in ("valued", "pr", "unit", "hits")] + [
+        layouts["color"][0].with_span_chunks(2).n_spans]
+    assert [(r["case"], r["k_tile"]) for r in rows[22:]] == [
+        ("b5_color", 4), ("b5_float", 4), ("b5_spgemm", 4)]
     assert all(r["device_ms"] == "not measured" for r in rows)
+    assert all("sparse_mm_ms" in r and "sparse_mm_two_calls_ms" in r
+               for r in rows if r["case"] == "b8_hits")
