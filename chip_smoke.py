@@ -40,7 +40,14 @@ Phases, each raising on failure:
    C=125, edgeless; at R-MAT 18 W=4096/C=1024 and W=2048/C=256) and of the
    frontier-sparse SpMM (K = 1, 8, 32, 33 and 512; a full, a 10% and an
    empty frontier with and without out_mask; one-hot, signed-delta and
-   float X; at R-MAT 18 over greedy coloring's layout).
+   float X; at R-MAT 18 over greedy coloring's layout), of the dense SpMM
+   (K = 1, 4, 8, 32, 33; one-hot, signed-delta and float X nonzero on
+   all, 10% and none of the rows; through the keep pass at its own tiles
+   and at row tiles of 32 rows, and walking where one tile holds the
+   window; at R-MAT 18 over the unit and valued pull layouts) and of the
+   fused max/min pass (full, 10% and empty frontiers with and without
+   out_mask, and an all-zero x, bit for bit; at R-MAT 18 over Luby's
+   layout).
    Then the edge shapes again, 20 times, on the range-checking build.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
@@ -135,6 +142,17 @@ def time_ms(torch, fn, n: int = 20) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / n
+
+
+LIBRARY = " library"  # timed[name + LIBRARY]: the library call of row name
+
+
+def library(torch, timed: dict, name: str, fn) -> float:
+    """:func:`time_ms` of ``fn``, the one PyTorch call computing kernel
+    ``name``'s function, kept in ``timed`` so that check_kernels also
+    takes its device time (``library_device_ms``)."""
+    timed[name + LIBRARY] = fn
+    return time_ms(torch, fn)
 
 
 def max_abs_err(torch, got, want, exact: bool, rtol: float = 1e-5,
@@ -416,6 +434,104 @@ def compare_hits_spmm_spans(torch, layouts, b8_keys, b5_keys, ks,
                                 keep(name, sum_check(
                                     torch, f"{what} columns {j}+", gj,
                                     *layout_terms(L, xj, False, ch_act), want))
+    return errs
+
+
+def compare_spmm_minmax_spans(torch, layouts, b4_keys, b6_keys, ks,
+                              slice_k: int) -> dict:
+    """B4 (the dense SpMM) and B6 (the fused max/min pass), the span
+    kernels, against their plain versions. B4 over each layout of
+    ``b4_keys`` at every K of ``ks``, on one-hot, signed one-hot and float
+    X whose rows are nonzero on all, 10% or none of the vertices (all-zero
+    rows, which the row flags drop), through the keep pass at its own
+    tiles and at row tiles of 32 rows, and through the walking tile pass
+    where one tile holds the whole window; exact where the values and X
+    are small integers, else :func:`sum_check`, the plain version in
+    slices of
+    ``slice_k`` columns. B6 over each layout of ``b6_keys`` (x >= 0,
+    values >= 0) on a full, a 10% and an empty frontier, each with and
+    without out_mask (the frontier itself, as Luby's rounds call it), and
+    on an all-zero x (ymin stays _BIG): bit for bit. An edgeless layout
+    must give the identity. Returns {kernel: max abs error}."""
+    from gunrock_tpu_torch.ops.kernels import semiring, spmm
+
+    errs = {}
+
+    def keep(name, e):
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    name = "bucketed_spmm"
+    for key in b4_keys:
+        L = layouts[key]
+        V, dev = L.n_vertices, L.device
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        int_values = bool(torch.equal(L.values, L.values.round()))
+        rows = {"all": torch.ones(V, dtype=torch.bool, device=dev),
+                "10%": torch.rand(V, device=dev, generator=gen) < 0.1,
+                "none": torch.zeros(V, dtype=torch.bool, device=dev)}
+        for k in ks:
+            onehot = torch.nn.functional.one_hot(
+                torch.randint(0, k, (V,), device=dev, generator=gen), k).float()
+            sign = torch.randint(-1, 2, (V, 1), device=dev, generator=gen)
+            xs = {"one-hot": onehot, "signed": onehot * sign,
+                  "float": torch.randn((V, k), device=dev, generator=gen)}
+            # the keep pass with its own tiles and with row tiles of 32
+            # rows, and the walking tile pass where one tile holds it all
+            kt, tile_rows = spmm.tile_shape(k, L.window, True)
+            modes = [{"walk": False}, {"walk": False, "tile_rows": 32}]
+            if kt >= k and tile_rows >= L.window:
+                modes.append({"walk": True})
+            for nz, on in rows.items():
+                for xk, x in xs.items():
+                    x = torch.where(on[:, None], x, 0.0)
+                    for mode in modes:
+                        what = (f"{name} {key} W={L.window}/C={L.chunk} K={k} "
+                                f"rows {nz} {xk} {mode}")
+                        got = spmm.bucketed_spmm(L, x, **mode)
+                        torch.cuda.synchronize()
+                        if L.n_chunks == 0 or nz == "none":
+                            if bool(got.any()):
+                                raise AssertionError(f"{what}: not 0")
+                            keep(name, 0.0)
+                            continue
+                        for j in range(0, k, slice_k):
+                            xj = x[:, j:j + slice_k].contiguous()
+                            want = spmm.bucketed_spmm_plain(L, xj)
+                            gj = got[:, j:j + slice_k].contiguous()
+                            if int_values and xk != "float":
+                                record(torch, errs, name, gj, want, True, what)
+                            else:
+                                keep(name, sum_check(
+                                    torch, f"{what} columns {j}+", gj,
+                                    *layout_terms(L, xj, False), want))
+
+    name = "bucketed_semiring_spmv_sparse_minmax"
+    for key in b6_keys:
+        L = layouts[key]
+        V, dev = L.n_vertices, L.device
+        gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+        prio = torch.randperm(V, device=dev, generator=gen).float() + 1.0
+        fronts = {"full": torch.ones(V, dtype=torch.bool, device=dev),
+                  "10%": torch.rand(V, device=dev, generator=gen) < 0.1,
+                  "empty": torch.zeros(V, dtype=torch.bool, device=dev)}
+        for front, active in fronts.items():
+            for om in (None, active):
+                for xk in ("priorities", "zero"):
+                    x = (torch.where(active, prio, 0.0) if xk == "priorities"
+                         else torch.zeros(V, device=dev))
+                    what = (f"{name} {key} W={L.window}/C={L.chunk} {front} "
+                            f"out_mask={om is not None} x={xk}")
+                    (gmax, gmin), (wmax, wmin) = both(
+                        torch, semiring.bucketed_semiring_spmv_sparse_minmax,
+                        semiring.bucketed_semiring_spmv_sparse_minmax_plain,
+                        L, x, active, om)
+                    for g, w, side in ((gmax, wmax, "ymax"), (gmin, wmin, "ymin")):
+                        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                            raise AssertionError(f"{what} {side}: not bit-equal")
+                    if xk == "zero" and not (bool((gmax == 0).all()) and bool(
+                            (gmin == semiring._BIG).all())):
+                        raise AssertionError(f"{what}: not (0, _BIG)")
+                    keep(name, 0.0)
     return errs
 
 
@@ -999,6 +1115,18 @@ def check_edge_shapes(torch, dev) -> None:
             ("rank", "rank_p3", "odd_chunk", "edgeless"), (1, 8, 32, 33, 512),
             512).items():
         errs[name] = max(errs.get(name, 0.0), e)
+    # B4 and B6 on the span table likewise; B6's layouts hold values >= 0
+    src, dst = color._sym_loopfree_edges(graph)
+    layouts["color_p3"] = layouts["color"].with_span_chunks(3)
+    layouts["color_odd"] = build_bucketed_layout(
+        src, dst, np.ones(src.size, np.float32), V, window=W, chunk=125,
+        device=dev)
+    for name, e in compare_spmm_minmax_spans(
+            torch, layouts, ("unit", "rank_p3", "odd_chunk", "empty_row",
+                             "edgeless"),
+            ("color", "color_p3", "color_odd", "empty_row", "edgeless"),
+            (1, 4, 8, 32, 33), 64).items():
+        errs[name] = max(errs.get(name, 0.0), e)
     x = torch.ones(V, device=dev)
     act = torch.ones(V, dtype=torch.bool, device=dev)
     if not (bool((semiring.bucketed_semiring_spmv_sparse(
@@ -1028,7 +1156,8 @@ def check_edge_shapes(torch, dev) -> None:
     torch.cuda.synchronize()
     print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
           f"negative values; an empty row window; edgeless; spans of 3 "
-          f"chunks; C=125; B5 at K=1, 8, 32, 33, 512): max abs err {errs}")
+          f"chunks; C=125; B5 at K=1, 8, 32, 33, 512; B4 at K=1, 4, 8, 32, "
+          f"33): max abs err {errs}")
 
 
 def compare_probe_kernels(torch, layouts, dev) -> dict:
@@ -1144,6 +1273,8 @@ def check_kernels(torch, graph, layouts):
     span_errs = compare_span_kernels(torch, layouts, ("valued", "pr"))
     span_errs.update(compare_hits_spmm_spans(
         torch, layouts, ("hits", "geo"), ("rank",), (1, 8, 32, 33, 512), 64))
+    span_errs.update(compare_spmm_minmax_spans(
+        torch, layouts, ("unit", "valued"), ("color",), (1, 4, 8, 32, 33), 64))
     dev = graph.device
     V = graph.n_vertices
     lay = layouts["unit"]
@@ -1188,7 +1319,8 @@ def check_kernels(torch, graph, layouts):
         plain_ms=time_ms(torch, lambda: semiring.bucketed_semiring_spmv_sparse_plain(
             lay, xf, full, "plus_times", out_mask=full, unit=True)),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.sparse.mm(A, xf[:, None])))
+        library_ms=library(torch, timed, "bucketed_semiring_spmv_sparse",
+                           lambda: torch.sparse.mm(A, xf[:, None])))
     tenth = torch.rand(V, device=dev, generator=gen) < 0.1
     half = torch.rand(V, device=dev, generator=gen) < 0.5
     tenth_x = tenth.float()
@@ -1207,7 +1339,8 @@ def check_kernels(torch, graph, layouts):
             "bucketed_spmm", lambda: spmm.bucketed_spmm(lay, xr))),
         plain_ms=time_ms(torch, lambda: spmm.bucketed_spmm_plain(lay, xr)),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.sparse.mm(A, xr)))
+        library_ms=library(torch, timed, "bucketed_spmm",
+                           lambda: torch.sparse.mm(A, xr)))
 
     # push step: a small frontier of the size the DO switch pushes, over a
     # 30%-reached distance vector
@@ -1252,12 +1385,17 @@ def check_kernels(torch, graph, layouts):
     # CUDA events, which the host's launch overhead can set), and each
     # kernel's share of it in microseconds per call; the push step's
     # includes its 1 MB distance copy
-    for name, fn in timed.items():
+    for key, fn in timed.items():
         prof = device_profile(lambda: [fn() for _ in range(20)])
-        rows[name]["device_ms"] = (prof["busy_us"] / 20e3 if "busy_us" in prof
-                                   else None)
-        rows[name]["device_kernels_us"] = {
+        busy = prof["busy_us"] / 20e3 if "busy_us" in prof else None
+        if key.endswith(LIBRARY):
+            rows[key[:-len(LIBRARY)]]["library_device_ms"] = busy
+            continue
+        rows[key]["device_ms"] = busy
+        rows[key]["device_kernels_us"] = {
             k: us / 20 for k, (us, _) in prof.get("top_us", {}).items()}
+    for r in rows.values():
+        r.setdefault("library_device_ms", None)
     return rows
 
 
@@ -1306,7 +1444,8 @@ def family_kernel_rows(torch, graph, layouts, timed) -> dict:
         plain_ms=time_ms(torch, lambda: semiring.bucketed_semiring_spmv_plain(
             lay, x, "plus_times")),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.sparse.mm(A_pull, x[:, None])),
+        library_ms=library(torch, timed, "bucketed_semiring_spmv",
+                           lambda: torch.sparse.mm(A_pull, x[:, None])),
         library="torch.sparse.mm (CSR)")
     for key, sr in (("unit", "plus_times"), ("valued", "plus_times"),
                     ("big", "min_plus")):
@@ -1346,7 +1485,8 @@ def family_kernel_rows(torch, graph, layouts, timed) -> dict:
         plain_ms=time_ms(torch, lambda: hits_fused.hits_fused_pass_plain(
             lay, auth, hub)),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.sparse.mm(M, hub_auth)),
+        library_ms=library(torch, timed, "hits_fused_pass",
+                           lambda: torch.sparse.mm(M, hub_auth)),
         library="torch.sparse.mm ([[0, A], [A^T, 0]] . (hub; auth)), one call",
         library_two_calls_ms=time_ms(
             torch, lambda: (torch.sparse.mm(A, auth[:, None]),
@@ -1447,7 +1587,7 @@ def frontier_kernel_rows(torch, graph, layouts, timed) -> tuple:
         plain_ms=time_ms(torch, lambda: spmm.bucketed_spmm_sparse_plain(
             rlay, x1, full, full), 5),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.sparse.mm(A, x1)),
+        library_ms=library(torch, timed, name, lambda: torch.sparse.mm(A, x1)),
         library="torch.sparse.mm (CSR)")
     print(f"bucketed_spmm_sparse K={K}, full frontier, float X, ms:",
           time_ms(torch, lambda: spmm.bucketed_spmm_sparse(rlay, xr, full,
@@ -1598,7 +1738,7 @@ def analysis_kernel_rows(torch, graph, layouts, timed) -> tuple:
         plain_ms=time_ms(torch, lambda: banded.banded_gather_plain(
             table2, idx, block_lo, span_rows=span_rows, block_t=block_t), 5),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: flat.index_select(0, idx)),
+        library_ms=library(torch, timed, name, lambda: flat.index_select(0, idx)),
         library="torch.index_select (int32 indices)")
     print(f"banded_gather: slab of {idx.numel()} positions, span_rows "
           f"{span_rows}, table {flat.numel()}")
@@ -1674,7 +1814,8 @@ def probe_kernel_rows(torch, graph, layouts, timed) -> dict:
             "gather", lambda: probes.gather(xt, it, axis))),
         plain_ms=time_ms(torch, lambda: probes.gather_plain(xt, it, axis)),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.take_along_dim(xt, il, dim=axis)))
+        library_ms=library(torch, timed, "gather",
+                           lambda: torch.take_along_dim(xt, il, dim=axis)))
 
     # P3: the dma probe's case, then one x-window per chunk
     xa, meta, cnt = dma.check_inputs()
@@ -1815,6 +1956,10 @@ def frontier_path(torch, graph) -> dict:
             graph, strategy="greedy", warmup=False, device=dev)),
         "mst": device_profile(lambda: mst.run(graph, warmup=False,
                                                      device=dev)),
+        "color_luby": device_profile(lambda: color.run(
+            graph, seed=SEED, strategy="luby", warmup=False, device=dev)),
+        "ppr_batch": device_profile(lambda: ppr.run_batch(graph, seeds,
+                                                          device=dev)),
     }
     return out
 
@@ -2014,6 +2159,8 @@ def semiring_path(torch, graph) -> dict:
             graph, sources[0], warmup=False, device=dev)),
         "pr": device_profile(lambda: pr.run(graph, warmup=False,
                                                    device=dev)),
+        "pr_batch": device_profile(lambda: pr.run_batch(
+            graph, alphas, tol=tol, device=dev)),
     }
     return out
 
@@ -2202,6 +2349,7 @@ def analysis_path(torch, graph, order) -> dict:
             graph, top[0], warmup=False, device=dev)),
         "geo_2_outer": device_profile(lambda: geo.run(
             graph, lat, lon, total_iterations=2, warmup=False, device=dev)),
+        "bc_batch_k32": device_profile(lambda: bc.bc_batch_kernel(graph, top)),
     }
     return out
 
@@ -2357,7 +2505,7 @@ def main() -> int:
         print(f"{k}: max_abs_err {r['max_abs_err']} ms {r['ms']:.4f} device "
               f"{r['device_ms']} plain {r['plain_ms']:.4f} bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}) library "
-              f"{r['library_ms']}")
+              f"{r['library_ms']} (device {r['library_device_ms']})")
     seconds["kernels"] = time.perf_counter() - t0
     print(f"float plus_times checks: largest error {LIMIT_SHARE['max']:.4f} "
           "of its f32 summation limit")

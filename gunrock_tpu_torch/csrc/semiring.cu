@@ -26,12 +26,12 @@
 //   min_plus:   msg = min(val + x, BIG) (min(x, BIG) when unit: the
 //               value-free form is the (x)-identity, not weight 1)
 //
-// The fused max/min pass (minmax_pull) walks the queued chunks and sends
-// each positive message m = val * x twice: an atomic max into ymax
-// (identity 0) and an atomic min into ymin (identity BIG, which a row with
-// no positive message keeps: BIG, not inf). It needs x >= 0 and values >=
-// 0, so m > 0 picks the real messages and both atomics can order the
-// floats by their int bits.
+// The fused max/min pass (semiring tag kMaxMin, sparse and valued only)
+// reduces each positive message m = val * x twice over the active chunks:
+// max into ymax (identity 0) and min into ymin (identity BIG, which a row
+// with no positive message keeps: BIG, not inf). It needs x >= 0 and
+// values >= 0, so m > 0 picks the real messages and both reductions can
+// order the floats by their int bits.
 //
 // What bounds it on this card: bytes. Each slot reads 8 B of row/col
 // metadata (12 B valued) and gathers 4 B of x from one window (L1/L2
@@ -41,7 +41,7 @@
 // R-MAT 18 coloring layout reads 12 B per slot over ~7.8M slots plus x and
 // writes two f32[V]: ~97 MB, ~29 us on a full frontier.
 //
-// Design of the sparse and dense passes: spans. Chunks are sorted by row
+// Design of all three: spans. Chunks are sorted by row
 // block, and the layout cuts each row block's chunk range into spans of at
 // most P chunks (layout.py::span_table; P = 32 at C = 256). Two launches:
 // 1. span_pass, one block per span. It fills a window of W floats in
@@ -56,13 +56,24 @@
 //    max_times (identity 0), >= BIG for min_plus. Then the window goes out
 //    with plain coalesced stores into partial[span], with touched[span] =
 //    whether any message was sent (written on every call: no memset).
+//    kMaxMin keeps two windows, max then min, and its partials are every
+//    span's max window, then every span's min window. Its layout
+//    (coloring's symmetrized push layout) keeps a chunk's slots in source
+//    order, so a hub's row comes in runs: 43% of the 7,878,410 real slots
+//    at R-MAT 18 lie in runs of one row of 2 or more within 32 slots, 30%
+//    in runs of 8 or more, 13% fill all 32 (mean run 1.6; the pull
+//    layouts' is 1.0). Shared atomics on one word serialize, so a warp
+//    first folds each run of equal rows on consecutive lanes (for each of
+//    a lane's four slots) with a segmented max/min by shuffle, and the
+//    run's last lane sends one atomic pair.
 // 2. reduce_spans, one block of 16 warps per (row block, strip of 512
-//    entries): each warp combines the touched partials of every 16th span
-//    of the block, eight 16-byte loads in flight per lane (row block 0
-//    holds 189 spans at R-MAT 18, so the chain of loads, not the bytes,
-//    sets this pass's time), the block combines its warps in order, and
-//    all entries of the strip are written; the identity where no span
-//    touched the block.
+//    entries[, window]): each warp combines the touched partials of every
+//    16th span of the block, eight 16-byte loads in flight per lane (row
+//    block 0 holds 189 spans at R-MAT 18, so the chain of loads, not the
+//    bytes, sets this pass's time), the block combines its warps in order,
+//    and all entries of the strip are written; the identity where no span
+//    touched the block. kMaxMin's windows are blockIdx.z = 0 (max, into
+//    ymax) and 1 (min, into ymin).
 // So no message leaves the SM as an atomic. The first design sent one
 // global atomic per real slot (3,939,205 at R-MAT 18) straight into y:
 // 0.219 ms of device time for B3's valued pass at W=2048/C=256, 78% of it
@@ -97,7 +108,7 @@
 
 namespace {
 
-enum Semiring { kPlusTimes = 0, kMinPlus = 1, kMaxTimes = 2 };
+enum Semiring { kPlusTimes = 0, kMinPlus = 1, kMaxTimes = 2, kMaxMin = 3 };
 enum Mode { kFull = 0, kGather = 1, kStream = 2 };
 
 struct Args {
@@ -109,8 +120,9 @@ struct Args {
   const int* col;
   const float* val;  // null for a unit pass
   const float* x;
-  float* y;        // float[n_row_blocks * window], written whole
-  float* partial;  // float[n_spans * window]
+  float* y;        // float[n_row_blocks * window], written whole (kMaxMin: ymax)
+  float* ymin;     // kMaxMin: float[n_row_blocks * window], written whole
+  float* partial;  // float[n_windows * n_spans * window]
   int* touched;    // int[n_spans]
   float* t_span;   // floor modes: float[n_spans]
   int n_spans;
@@ -121,9 +133,15 @@ struct Args {
   long n_x;  // length of x (n_vertices)
 };
 
+// Windows a span keeps in shared memory: kMaxMin's max and min, else one.
 template <int kSemiring>
-__device__ __forceinline__ float identity() {
-  return kSemiring == kMinPlus ? gr::kBig : 0.0f;
+constexpr int kWindows = kSemiring == kMaxMin ? 2 : 1;
+
+// The identity of window h (kMaxMin: 0 the max window, 1 the min window).
+template <int kSemiring>
+__device__ __forceinline__ float identity(int h = 0) {
+  return kSemiring == kMinPlus || (kSemiring == kMaxMin && h == 1) ? gr::kBig
+                                                                   : 0.0f;
 }
 
 template <int kSemiring>
@@ -139,12 +157,13 @@ __device__ __forceinline__ float4 combine4(float4 a, float4 b) {
 }
 
 // One slot: row r (window-local), col c, value v. kFull reduces its
-// message into the shared window and sets `sent`; the floor modes add to
+// message into the shared window and sets `sent` (kMaxMin: hands a
+// positive message to max_min_runs as key = r, m); the floor modes add to
 // the thread's share t of the span's sum instead.
 template <int kSemiring, bool kUnit, int kMode>
 __device__ __forceinline__ void visit(const Args& a, float* win, long xbase,
                                       int r, int c, float v, float& t,
-                                      bool& sent) {
+                                      bool& sent, int& key, float& m) {
   if (r == a.window) return;  // padding slot
   const long xi = xbase + c;
   if (!GR_IN_RANGE(xi, a.n_x) || !GR_IN_RANGE(r, a.window)) return;
@@ -159,32 +178,109 @@ __device__ __forceinline__ void visit(const Args& a, float* win, long xbase,
     return;
   }
   if (kSemiring == kPlusTimes) {
-    const float m = kUnit ? xv : v * xv;
-    if (m != 0.0f) {
-      atomicAdd(win + r, m);
+    const float msg = kUnit ? xv : v * xv;
+    if (msg != 0.0f) {
+      atomicAdd(win + r, msg);
       sent = true;
     }
   } else if (kSemiring == kMaxTimes) {
-    const float m = kUnit ? xv : v * xv;
-    if (m > 0.0f) {  // positive floats order like their int bit patterns
-      atomicMax(reinterpret_cast<int*>(win + r), __float_as_int(m));
+    const float msg = kUnit ? xv : v * xv;
+    if (msg > 0.0f) {  // positive floats order like their int bit patterns
+      atomicMax(reinterpret_cast<int*>(win + r), __float_as_int(msg));
       sent = true;
     }
+  } else if (kSemiring == kMaxMin) {
+    const float msg = kUnit ? xv : v * xv;
+    if (msg > 0.0f) {
+      key = r;
+      m = msg;
+    }
   } else {
-    const float m = fminf(kUnit ? xv : v + xv, gr::kBig);
-    if (m < gr::kBig) {
-      gr::atomic_min_float(win + r, m);
+    const float msg = fminf(kUnit ? xv : v + xv, gr::kBig);
+    if (msg < gr::kBig) {
+      gr::atomic_min_float(win + r, msg);
       sent = true;
     }
   }
 }
 
+// kMaxMin: reduces the calling warp's messages (key: the row, < 0 for
+// none; m > 0) into the max window win[0, W) and the min window win[W,
+// 2W): a segmented max/min by shuffle folds each run of equal keys on
+// consecutive lanes, and the run's last lane sends one atomic pair on the
+// int bits (positive floats order like them). A warp with no message
+// leaves at once, and a lane with none is a run of its own, so a warp
+// whose messages hit distinct rows skips the fold. All 32 lanes must call
+// it.
+__device__ __forceinline__ void max_min_runs(float* win, int window, int key,
+                                             float m, bool& sent) {
+  constexpr unsigned kAll = 0xffffffffu;
+  if (__ballot_sync(kAll, key >= 0) == 0u) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kAll, key, 1);
+  const unsigned heads =
+      __ballot_sync(kAll, lane == 0 || prev != key || key < 0);
+  float hi = m, lo = m;
+  if (heads != kAll) {  // warp-uniform: a run spans lanes
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up_hi = __shfl_up_sync(kAll, hi, off);
+      const float up_lo = __shfl_up_sync(kAll, lo, off);
+      // lane - off is in this lane's run iff no run starts in (lane - off, lane]
+      if (lane >= off && ((heads >> (lane - off + 1)) & ((1u << off) - 1u)) == 0u) {
+        hi = fmaxf(hi, up_hi);
+        lo = fminf(lo, up_lo);
+      }
+    }
+  }
+  const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
+  if (tail && key >= 0) {
+    atomicMax(reinterpret_cast<int*>(win + key), __float_as_int(hi));
+    atomicMin(reinterpret_cast<int*>(win + window + key), __float_as_int(lo));
+    sent = true;
+  }
+}
+
+// The kPer slots from slot o of the span (one chunk: kPer divides C):
+// visit each, unless the chunk is inactive (sparse) or all kPer are
+// padding. kMaxMin's messages go to key/m, one per slot.
+template <int kSemiring, bool kUnit, bool kSparse, int kMode, bool kVec>
+__device__ __forceinline__ void visit_slots(const Args& a, float* win,
+                                            int first, long s0, int o,
+                                            float& t, bool& sent, int* key,
+                                            float* m) {
+  constexpr bool kLoadVal = !kUnit || kMode != kFull;
+  const int ch = first + o / a.chunk;
+  if (kSparse && !a.ch_act[ch]) return;
+  const long xbase = static_cast<long>(a.chunk_cb[ch]) * a.window;
+  const long s = s0 + o;
+  if constexpr (kVec) {
+    const int4 r = *reinterpret_cast<const int4*>(a.row + s);
+    if (r.x == a.window && r.y == a.window && r.z == a.window &&
+        r.w == a.window)
+      return;  // four padding slots (a chunk's tail): no more loads
+    const int4 c = *reinterpret_cast<const int4*>(a.col + s);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (kLoadVal) v = *reinterpret_cast<const float4*>(a.val + s);
+    visit<kSemiring, kUnit, kMode>(a, win, xbase, r.x, c.x, v.x, t, sent, key[0], m[0]);
+    visit<kSemiring, kUnit, kMode>(a, win, xbase, r.y, c.y, v.y, t, sent, key[1], m[1]);
+    visit<kSemiring, kUnit, kMode>(a, win, xbase, r.z, c.z, v.z, t, sent, key[2], m[2]);
+    visit<kSemiring, kUnit, kMode>(a, win, xbase, r.w, c.w, v.w, t, sent, key[3], m[3]);
+  } else {
+    const int r = a.row[s];
+    if (r == a.window) return;
+    const float v = kLoadVal ? a.val[s] : 0.0f;
+    visit<kSemiring, kUnit, kMode>(a, win, xbase, r, a.col[s], v, t, sent, key[0], m[0]);
+  }
+}
+
 template <int kSemiring, bool kUnit, bool kSparse, int kMode, bool kVec>
 __global__ void __launch_bounds__(gr::kThreads) span_pass(const Args a) {
-  extern __shared__ float4 win4[];  // kFull: the row block's window, W floats
+  extern __shared__ float4 win4[];  // kFull: the row block's window(s), W floats each
   float* win = reinterpret_cast<float*>(win4);
   __shared__ float warp_t[32];  // floor modes: the block's sum
   __shared__ int any_sent;
+  constexpr int kWin = kWindows<kSemiring>;
   const int span = blockIdx.x;
   const int first = a.span_first_chunk[span];
   const int last = a.span_first_chunk[span + 1];
@@ -203,40 +299,34 @@ __global__ void __launch_bounds__(gr::kThreads) span_pass(const Args a) {
   }
   const int W4 = a.window / 4;
   if (kMode == kFull) {
-    const float e = identity<kSemiring>();
-    for (int i = threadIdx.x; i < W4; i += blockDim.x)
-      win4[i] = make_float4(e, e, e, e);
+#pragma unroll
+    for (int h = 0; h < kWin; ++h) {
+      const float e = identity<kSemiring>(h);
+      for (int i = threadIdx.x; i < W4; i += blockDim.x)
+        win4[h * W4 + i] = make_float4(e, e, e, e);
+    }
     if (threadIdx.x == 0) any_sent = 0;
     __syncthreads();
   }
-  constexpr bool kLoadVal = !kUnit || kMode != kFull;
   constexpr int kPer = kVec ? 4 : 1;
   float t = 0.0f;
   bool sent = false;
   const long s0 = static_cast<long>(first) * a.chunk;
   const int n_slots = (last - first) * a.chunk;
-  for (int o = threadIdx.x * kPer; o < n_slots; o += blockDim.x * kPer) {
-    const int ch = first + o / a.chunk;  // kPer divides C: one chunk
-    if (kSparse && !a.ch_act[ch]) continue;
-    const long xbase = static_cast<long>(a.chunk_cb[ch]) * a.window;
-    const long s = s0 + o;
-    if (kVec) {
-      const int4 r = *reinterpret_cast<const int4*>(a.row + s);
-      if (r.x == a.window && r.y == a.window && r.z == a.window &&
-          r.w == a.window)
-        continue;  // four padding slots (a chunk's tail): no more loads
-      const int4 c = *reinterpret_cast<const int4*>(a.col + s);
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (kLoadVal) v = *reinterpret_cast<const float4*>(a.val + s);
-      visit<kSemiring, kUnit, kMode>(a, win, xbase, r.x, c.x, v.x, t, sent);
-      visit<kSemiring, kUnit, kMode>(a, win, xbase, r.y, c.y, v.y, t, sent);
-      visit<kSemiring, kUnit, kMode>(a, win, xbase, r.z, c.z, v.z, t, sent);
-      visit<kSemiring, kUnit, kMode>(a, win, xbase, r.w, c.w, v.w, t, sent);
-    } else {
-      const int r = a.row[s];
-      if (r == a.window) continue;
-      const float v = kLoadVal ? a.val[s] : 0.0f;
-      visit<kSemiring, kUnit, kMode>(a, win, xbase, r, a.col[s], v, t, sent);
+  const int lane = threadIdx.x & 31;
+  for (int o0 = (threadIdx.x - lane) * kPer; o0 < n_slots;
+       o0 += blockDim.x * kPer) {  // warp-uniform, for max_min_runs
+    int key[kPer];
+    float m[kPer];
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) key[p] = -1, m[p] = 0.0f;
+    const int o = o0 + lane * kPer;
+    if (o < n_slots)
+      visit_slots<kSemiring, kUnit, kSparse, kMode, kVec>(a, win, first, s0, o,
+                                                          t, sent, key, m);
+    if (kSemiring == kMaxMin && kMode == kFull) {
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) max_min_runs(win, a.window, key[p], m[p], sent);
     }
   }
   if (kMode != kFull) {  // every thread gets here: the bounds are uniform
@@ -247,15 +337,20 @@ __global__ void __launch_bounds__(gr::kThreads) span_pass(const Args a) {
   if (sent) any_sent = 1;  // every writer stores the same 1
   __syncthreads();
   if (any_sent) {
-    float4* out = reinterpret_cast<float4*>(a.partial + static_cast<long>(span) * a.window);
-    for (int i = threadIdx.x; i < W4; i += blockDim.x) out[i] = win4[i];
+#pragma unroll
+    for (int h = 0; h < kWin; ++h) {
+      float4* out = reinterpret_cast<float4*>(
+          a.partial + (static_cast<long>(h) * a.n_spans + span) * a.window);
+      for (int i = threadIdx.x; i < W4; i += blockDim.x) out[i] = win4[h * W4 + i];
+    }
   }
   if (threadIdx.x == 0) a.touched[span] = any_sent;
 }
 
 // y's entries [strip*512, strip*512 + 512) of row block rb = blockIdx.x:
 // the touched partials of rb's spans combined (gr::reduce_span_strip), the
-// identity if none.
+// identity if none. kMaxMin: window h = blockIdx.z, the max windows into
+// y (ymax), the min windows into ymin.
 template <int kSemiring>
 struct Combine {
   static __device__ __forceinline__ float4 apply(float4 a, float4 b) {
@@ -263,13 +358,22 @@ struct Combine {
   }
 };
 
+template <>
+struct Combine<kMaxMin> {
+  static __device__ __forceinline__ float4 apply(float4 a, float4 b) {
+    return blockIdx.z == 0 ? combine4<kMaxTimes>(a, b) : combine4<kMinPlus>(a, b);
+  }
+};
+
 template <int kSemiring>
 __global__ void __launch_bounds__(gr::kReduceWarps * 32) reduce_spans(const Args a) {
-  const int rb = blockIdx.x;
+  const int rb = blockIdx.x, h = blockIdx.z;
+  float* y = h == 0 ? a.y : a.ymin;
   gr::reduce_span_strip<Combine<kSemiring>>(
-      a.partial, a.touched, a.rb_first_span[rb], a.rb_first_span[rb + 1],
-      a.n_spans, a.window, blockIdx.y * gr::kStrip, identity<kSemiring>(),
-      a.y + static_cast<long>(rb) * a.window);
+      a.partial + static_cast<long>(h) * a.n_spans * a.window, a.touched,
+      a.rb_first_span[rb], a.rb_first_span[rb + 1], a.n_spans, a.window,
+      blockIdx.y * gr::kStrip, identity<kSemiring>(h),
+      y + static_cast<long>(rb) * a.window);
 }
 
 // Floor modes' second pass, one block per row block rb: the sum of t_span
@@ -299,7 +403,9 @@ int launch_spans(const Args& a, cudaStream_t s) {
                    aligned16(a.val);
   void (*kernel)(Args) = vec ? span_pass<kSemiring, kUnit, kSparse, kMode, true>
                              : span_pass<kSemiring, kUnit, kSparse, kMode, false>;
-  const int smem = kMode == kFull ? static_cast<int>(sizeof(float)) * a.window : 0;
+  const int smem = kMode == kFull
+                       ? static_cast<int>(sizeof(float)) * a.window * kWindows<kSemiring>
+                       : 0;
   if (smem > 48 * 1024) {  // above 48 KB only when asked for
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -313,7 +419,8 @@ template <int kSemiring, bool kUnit, bool kSparse>
 int pull(const Args& a, cudaStream_t s) {
   const int err = launch_spans<kSemiring, kUnit, kSparse, kFull>(a, s);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.n_row_blocks, (a.window + gr::kStrip - 1) / gr::kStrip);
+  const dim3 grid(a.n_row_blocks, (a.window + gr::kStrip - 1) / gr::kStrip,
+                  kWindows<kSemiring>);
   reduce_spans<kSemiring><<<grid, gr::kReduceWarps * 32, 0, s>>>(a);
   return gr::finish(s);
 }
@@ -354,49 +461,15 @@ Args make_args(int n_spans, const void* span_first_chunk,
   return a;
 }
 
-// minmax_pull: ymax[row] = max m, ymin[row] = min m over the positive
-// messages m = values * x of the queued chunks; ymax starts at 0, ymin at
-// BIG.
-__global__ void minmax_pull(const int* __restrict__ queue,
-                            const int* __restrict__ count, int n_chunks,
-                            const int* __restrict__ chunk_rb,
-                            const int* __restrict__ chunk_cb,
-                            const int* __restrict__ row_local,
-                            const int* __restrict__ col_local,
-                            const float* __restrict__ values,
-                            const float* __restrict__ x,
-                            float* __restrict__ ymax, float* __restrict__ ymin,
-                            int window, int chunk, long n_x, long n_y) {
-  const int n_work = *count;
-  const long n_slots = static_cast<long>(n_chunks) * chunk;
-  for (int q = blockIdx.x; q < n_work; q += gridDim.x) {
-    const int ch = queue[q];
-    if (!GR_IN_RANGE(ch, n_chunks)) continue;
-    const long xbase = static_cast<long>(chunk_cb[ch]) * window;
-    const long ybase = static_cast<long>(chunk_rb[ch]) * window;
-    const long sbase = static_cast<long>(ch) * chunk;
-    for (int s = threadIdx.x; s < chunk; s += blockDim.x) {
-      if (!GR_IN_RANGE(sbase + s, n_slots)) continue;
-      const int r = row_local[sbase + s];
-      if (r == window) continue;  // padding slot
-      const long xi = xbase + col_local[sbase + s];
-      if (!GR_IN_RANGE(xi, n_x) || !GR_IN_RANGE(ybase + r, n_y)) continue;
-      const float m = values[sbase + s] * x[xi];
-      if (m > 0.0f) {  // positive floats order like their int bit patterns
-        atomicMax(reinterpret_cast<int*>(ymax + ybase + r), __float_as_int(m));
-        atomicMin(reinterpret_cast<int*>(ymin + ybase + r), __float_as_int(m));
-      }
-    }
-  }
-}
-
 }  // namespace
 
 // The sparse (ch_act: bool[n_chunks] from chunk_activity) or dense (ch_act
-// null) pull. semiring: 0 plus_times, 1 min_plus, 2 max_times. values may
-// be null when unit. x: float[n_vertices]. y: float[n_row_blocks *
-// window], written whole. scratch: float[n_spans * (window + 1)], the
-// partial windows and then the touched flags. window must be a multiple
+// null) pull. semiring: 0 plus_times, 1 min_plus, 2 max_times, 3 the fused
+// max/min pass (sparse and valued only). values may be null when unit. x:
+// float[n_vertices]. y: float[n_row_blocks * window], written whole; for
+// the max/min pass float[2 * n_row_blocks * window], ymax then ymin.
+// scratch: float[n_spans * (n_windows * window + 1)], the partial windows
+// (two for max/min) and then the touched flags. window must be a multiple
 // of 4 (the layout's is of 32).
 extern "C" int gr_spmv_pull(int semiring, int unit, const void* ch_act,
                             int n_spans, const void* span_first_chunk,
@@ -412,8 +485,14 @@ extern "C" int gr_spmv_pull(int semiring, int unit, const void* ch_act,
                      window, chunk, n_vertices, n_row_blocks);
   a.ch_act = static_cast<const unsigned char*>(ch_act);
   a.partial = static_cast<float*>(scratch);
-  a.touched = reinterpret_cast<int*>(a.partial + static_cast<long>(n_spans) * window);
+  const long n_win = semiring == kMaxMin ? 2 : 1;
+  a.touched = reinterpret_cast<int*>(a.partial + n_win * n_spans * window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (semiring == kMaxMin) {
+    if (unit || ch_act == nullptr) return cudaErrorInvalidValue;
+    a.ymin = a.y + static_cast<long>(n_row_blocks) * window;
+    return pull<kMaxMin, false, true>(a, s);
+  }
   return ch_act != nullptr ? dispatch<true>(semiring, unit, s, a)
                            : dispatch<false>(semiring, unit, s, a);
 }
@@ -444,26 +523,5 @@ extern "C" int gr_spmv_dense_floor(int mode, int n_spans,
     return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
   floor_fill<<<n_row_blocks, gr::kThreads, 0, s>>>(a);
-  return gr::finish(s);
-}
-
-// The fused max/min pass over the queued chunks. ymax, ymin:
-// float[n_row_blocks * window], already 0 and BIG.
-extern "C" int gr_spmv_sparse_minmax(int blocks, const void* queue,
-                                     const void* count, int n_chunks,
-                                     const void* chunk_rb, const void* chunk_cb,
-                                     const void* row_local,
-                                     const void* col_local, const void* values,
-                                     const void* x, void* ymax, void* ymin,
-                                     int window, int chunk, int n_vertices,
-                                     int n_row_blocks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  minmax_pull<<<blocks, gr::kThreads, 0, s>>>(
-      static_cast<const int*>(queue), static_cast<const int*>(count), n_chunks,
-      static_cast<const int*>(chunk_rb), static_cast<const int*>(chunk_cb),
-      static_cast<const int*>(row_local), static_cast<const int*>(col_local),
-      static_cast<const float*>(values), static_cast<const float*>(x),
-      static_cast<float*>(ymax), static_cast<float*>(ymin), window, chunk,
-      n_vertices, static_cast<long>(n_row_blocks) * window);
   return gr::finish(s);
 }

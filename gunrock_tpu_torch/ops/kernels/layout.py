@@ -116,6 +116,8 @@ class BucketedEdges:
     chunk_by_cb: torch.Tensor
     col_span_first_chunk: torch.Tensor
     cb_first_span: torch.Tensor
+    # the most chunks of one row span (0 without chunks)
+    max_span_chunks: int
 
     @classmethod
     def from_arrays(cls, arrays: dict, window: int, chunk: int, n_chunks: int,
@@ -171,8 +173,10 @@ def _span_tables(chunk_rb, chunk_cb, n_row_blocks: int, n_col_blocks: int,
     cols = span_table(cb[by_cb], n_col_blocks, max_chunks)
     names = ("span_first_chunk", "rb_first_span", "chunk_by_cb",
              "col_span_first_chunk", "cb_first_span")
-    return {k: torch.from_numpy(a).to(device)
-            for k, a in zip(names, (*rows, by_cb, *cols))}
+    out = {k: torch.from_numpy(a).to(device)
+           for k, a in zip(names, (*rows, by_cb, *cols))}
+    out["max_span_chunks"] = int(np.diff(rows[0]).max(initial=0))
+    return out
 
 
 def _pack_subblock_bits(chunk_ids, local, window: int, n_chunks: int):

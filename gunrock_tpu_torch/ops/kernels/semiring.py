@@ -26,11 +26,11 @@ identity. ``unit=True`` skips the values: msg = x for plus/max, min(x,
 _BIG) for min_plus (the (x)-identity, not weight 1). ``exact`` is accepted
 for the callers and changes nothing: the port computes in f32 throughout.
 
-CUDA source: ``csrc/semiring.cu``. The sparse and dense passes are one
-template: a block per span of the layout's span table reduces its chunks
-into the row window in shared memory, and a second pass combines the
-spans of each row block into y, which the kernels write whole. The
-max/min pass is a kernel of its own.
+CUDA source: ``csrc/semiring.cu``. The three passes are one template: a
+block per span of the layout's span table reduces its chunks into the row
+window in shared memory (the max/min pass into two windows, max and min),
+and a second pass combines the spans of each row block into y (ymax and
+ymin), which the kernels write whole.
 """
 
 from __future__ import annotations
@@ -51,14 +51,13 @@ SEMIRINGS = {
     "min_plus": (1, _BIG, "amin"),
     "max_times": (2, 0.0, "amax"),
 }
-_BLOCKS_PER_SM = 8
+_MAX_MIN = "max_min"  # the fused max/min pass's kernel tag, see _pull
+_MAX_MIN_ID = 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gr_spmv_pull": [_I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _P, _I, _I, _I, _I, _P],
-    "gr_spmv_sparse_minmax": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _P],
     # the dense pass's floor modes (ops/kernels/probes.py::spmv_floor)
     "gr_spmv_dense_floor": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P],
@@ -108,22 +107,28 @@ def bucketed_semiring_spmv(
         return bucketed_semiring_spmv_plain(layout, x, semiring, unit=unit)
     if dev.type != "cuda":
         raise ValueError(f"no semiring kernel for device {dev}")
-    return _pull(layout, x, semiring, unit, None, "bucketed_semiring_spmv")
+    return _finish(_pull(layout, x, semiring, unit, None,
+                         "bucketed_semiring_spmv"), V, semiring)
 
 
 def _pull(layout: BucketedEdges, x, semiring: str, unit: bool, ch_act,
           what: str) -> torch.Tensor:
     """Launch the span pass and the reduce pass over the chunks ``ch_act``
-    selects (every chunk when None) and count the launch as ``what``."""
-    check_window(layout.window)
+    selects (every chunk when None) and count the launch as ``what``.
+    Returns y, f32[n_row_blocks * W] (for ``_MAX_MIN``: ymax, then ymin)."""
+    n_win = 2 if semiring == _MAX_MIN else 1  # windows per span
+    check_window(n_win * layout.window)
     dev = layout.device
     W, V, n_spans = layout.window, layout.n_vertices, layout.n_spans
-    y = torch.empty(layout.n_row_blocks * W, dtype=torch.float32, device=dev)
+    y = torch.empty(n_win * layout.n_row_blocks * W, dtype=torch.float32,
+                    device=dev)
     # the partial windows of the spans, then their touched flags
-    scratch = torch.empty(n_spans * (W + 1), dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_spans * (n_win * W + 1), dtype=torch.float32,
+                          device=dev)
     lib = _build.load("semiring", _SIGNATURES)
     err = lib.gr_spmv_pull(
-        SEMIRINGS[semiring][0], int(unit), _build.ptr(ch_act), n_spans,
+        _MAX_MIN_ID if semiring == _MAX_MIN else SEMIRINGS[semiring][0],
+        int(unit), _build.ptr(ch_act), n_spans,
         _build.ptr(layout.span_first_chunk), _build.ptr(layout.rb_first_span),
         layout.n_chunks, _build.ptr(layout.chunk_cb),
         _build.ptr(layout.row_local), _build.ptr(layout.col_local),
@@ -133,7 +138,7 @@ def _pull(layout: BucketedEdges, x, semiring: str, unit: bool, ch_act,
     )
     _build.check(err, what)
     _build.LAUNCHES[what] += 1
-    return _finish(y, V, semiring)
+    return y
 
 
 def _reduce(layout: BucketedEdges, x, semiring: str, unit: bool, row, col,
@@ -191,8 +196,8 @@ def bucketed_semiring_spmv_sparse(
     if dev.type != "cuda":
         raise ValueError(f"no semiring kernel for device {dev}")
     ch_act = chunk_activity(layout, active, out_mask)[0]
-    return _pull(layout, x, semiring, unit, ch_act,
-                 "bucketed_semiring_spmv_sparse")
+    return _finish(_pull(layout, x, semiring, unit, ch_act,
+                         "bucketed_semiring_spmv_sparse"), V, semiring)
 
 
 def bucketed_semiring_spmv_sparse_plain(
@@ -245,24 +250,10 @@ def bucketed_semiring_spmv_sparse_minmax(
             layout, x, active, out_mask)
     if dev.type != "cuda":
         raise ValueError(f"no semiring kernel for device {dev}")
-    _, queue, count = chunk_activity(layout, active, out_mask)
-    W = layout.window
-    n_pad = layout.n_row_blocks * W
-    ymax = torch.zeros(n_pad, dtype=torch.float32, device=dev)
-    ymin = torch.full((n_pad,), _BIG, dtype=torch.float32, device=dev)
-    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
-    lib = _build.load("semiring", _SIGNATURES)
-    err = lib.gr_spmv_sparse_minmax(
-        blocks, _build.ptr(queue), _build.ptr(count), layout.n_chunks,
-        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
-        _build.ptr(layout.row_local), _build.ptr(layout.col_local),
-        _build.ptr(layout.values), _build.ptr(x), _build.ptr(ymax),
-        _build.ptr(ymin), W, layout.chunk, V, layout.n_row_blocks,
-        _build.stream(dev),
-    )
-    _build.check(err, "bucketed_semiring_spmv_sparse_minmax")
-    _build.LAUNCHES["bucketed_semiring_spmv_sparse_minmax"] += 1
-    return ymax[:V], ymin[:V]
+    ch_act = chunk_activity(layout, active, out_mask)[0]
+    y = _pull(layout, x, _MAX_MIN, False, ch_act,
+              "bucketed_semiring_spmv_sparse_minmax").view(2, -1)
+    return y[0, :V], y[1, :V]
 
 
 def bucketed_semiring_spmv_sparse_minmax_plain(

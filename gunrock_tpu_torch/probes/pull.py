@@ -26,36 +26,66 @@ One JSON line per case, each with the card's name and power limit:
              unit columns of A's row block 4 (rows 2048-2559) over the
              unit pull layout, its columns active
   b5_spgemm_hub  the same for row block 0 (the hubs' rows)
+and with ``--b4_b6`` (after them):
+
+  b4_k4      B4 (``bucketed_spmm``) as batch PageRank calls it: K=4, random
+             X, over the valued pull layout (W=2048/C=256)
+  b4_k8      B4 as batch PPR calls it: K=8, random X, unit pull layout
+  b4_k32     B4 at K=32 on random X over the unit pull layout (the kernel
+             table's row; SpMV's multi-vector, BC's batch of 32)
+  b4_msbfs   B4 as multi-source BFS calls it: K=32 over the unit pull
+             layout, X the frontier of the third SpMM of a search from the
+             32 highest-degree vertices (the vertices at distance 2)
+  b4_k4_keep, b4_k8_keep  b4_k4 and b4_k8 through the keep pass
+  b4_k32_walk, b4_msbfs_walk  b4_k32 and b4_msbfs with the tile pass
+             walking the metadata itself in K tiles of 8, no keep pass
+  b6_full    B6 (``bucketed_semiring_spmv_sparse_minmax``) as Luby's first
+             round calls it: the symmetrized unit push layout, every
+             vertex active and in out_mask, x a permutation of 1..V
+  b6_tenth, b6_hundredth, b6_empty  the same on 10%, 1% and no active
+             vertices (x 0 off them)
+  b6_*_nomask  the same four without out_mask
 
 with ``ms`` (CUDA events, mean of ``--num_runs`` warm calls), ``device_ms``
 (the card's busy time per call) and ``kernels`` (the device microseconds
 per call of each kernel the call ran), both from one
 ``utils/trace_stats.device_profile`` of ``--num_runs`` calls, ``bound_ms``
-(real slots only; for B5 those of the active chunks) and, where PyTorch
-has one call computing the same function, its time: ``sparse_mm_ms``, one
+(real slots only; for B5 and B6 those of the active chunks) and, where
+PyTorch has one call computing the same function, its wall and device
+time: ``sparse_mm_ms`` and ``sparse_mm_device_ms``, one
 ``torch.sparse.mm`` over the same matrix (for B8 over [[0, A], [A^T, 0]]
 times (hub; auth), beside ``sparse_mm_two_calls_ms``, A.auth and A^T.hub).
-B5's lines add ``active_chunks``.
+B5's and B6's lines add ``active_chunks``.
 
 ``--greedy`` adds one line, ``greedy_passes``: the active chunks (of the
 layout's), changed rows and nonzero X rows of every B5 pass of one greedy
 coloring (``color.run``, which runs its loop twice, warm-up and timed;
 the line keeps the timed run's passes).
 
+``--luby`` adds one line, ``luby_passes``: the active chunks of every B6
+pass of one Luby coloring (``color.run``, warm-up and timed; the timed
+run's passes), the device time of all of them (``device_ms_total``: the
+busy time of replaying the recorded passes, per replay of the whole
+sequence) split by kernel, and the row runs of Luby's layout
+(:func:`row_runs`).
+
 ``--sweep 4,8,16,32`` adds one line per P: b3_valued, b3_pr, b1_full, b8_hits
 and b5_color with both span tables cut at P
 (``BucketedEdges.with_span_chunks``); ``--k_tiles 4,8,16`` one line per K
-tile for b5_color, b5_float and b5_spgemm. On a tree without a span table,
-a column span table or B5's K tile, those lines are skipped, so the same
-file times an earlier tree's kernels.
+tile for b5_color, b5_float and b5_spgemm (and b4_k32 with ``--b4_b6``).
+On a tree without a span table, a column span table, B5's K tile or B4's
+K tile and walk, those lines are skipped, so the same file times an
+earlier tree's kernels.
 
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
-       [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--device cuda]
+       [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--b4_b6]
+       [--luby] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 
@@ -206,6 +236,94 @@ def cases(graph, layouts: dict, gen, k_tile=None) -> dict:
     return out
 
 
+def b4_cases(graph, layouts: dict, gen, k_tile=None) -> dict:
+    """B4's cases (see the module docstring), at the K tile ``k_tile`` when
+    given; the walking tile pass and another K tile only on a tree whose
+    ``bucketed_spmm`` takes them."""
+    from gunrock_tpu_torch.ops.kernels import spmm
+
+    dev, V = graph.device, graph.n_vertices
+    unit, valued = layouts["unit"], layouts["valued"]
+    A_unit = torch.sparse_csr_tensor(
+        graph.csc_offsets.long(), graph.csc_rows.long(),
+        torch.ones(graph.n_edges, device=dev), size=(V, V))
+    A = torch.sparse_csr_tensor(graph.csc_offsets.long(),
+                                graph.csc_rows.long(), graph.csc_values,
+                                size=(V, V))
+    # multi-source BFS from the 32 highest-degree vertices: the frontier
+    # the third SpMM takes, by torch.sparse.mm (any tree has it)
+    K = 32
+    src = torch.argsort(graph.out_degrees(), descending=True,
+                        stable=True)[:K]
+    front = torch.zeros((V, K), device=dev)
+    front[src, torch.arange(K, device=dev)] = 1.0
+    seen = front > 0
+    for _ in range(2):
+        new = (torch.sparse.mm(A_unit, front) > 0.5) & ~seen
+        seen |= new
+        front = new.float()
+    params = inspect.signature(spmm.bucketed_spmm).parameters
+    walk = "walk" in params
+    tile = {} if k_tile is None else {"k_tile_cols": k_tile}
+    if tile and "k_tile_cols" not in params:
+        return {}
+    out = {}
+
+    def case(name, L, x, A_lib, **kw):
+        kw.update(tile)
+        n_real = _n_real(L)
+        k = x.shape[1]
+        out[name] = (lambda: spmm.bucketed_spmm(L, x, **kw),
+                     12 * n_real + 8 * L.n_chunks + 2 * 4 * V * k,
+                     2 * n_real * k,
+                     {"sparse_mm": lambda: torch.sparse.mm(A_lib, x)},
+                     {"k": k, "nonzero_x_rows": int((x != 0).any(dim=1).sum())})
+
+    x4 = torch.rand((V, 4), device=dev, generator=gen)
+    x8 = torch.rand((V, 8), device=dev, generator=gen)
+    case("b4_k4", valued, x4, A)
+    case("b4_k8", unit, x8, A_unit)
+    x32 = torch.rand((V, K), device=dev, generator=gen)
+    case("b4_k32", unit, x32, A_unit)
+    case("b4_msbfs", unit, front, A_unit)
+    if walk and not tile:
+        # the other tile pass of each: K <= 8 through the keep pass; K=32
+        # walking the metadata, in four K tiles of 8 over the whole window
+        case("b4_k4_keep", valued, x4, A, walk=False)
+        case("b4_k8_keep", unit, x8, A_unit, walk=False)
+        case("b4_k32_walk", unit, x32, A_unit, walk=True, k_tile_cols=8)
+        case("b4_msbfs_walk", unit, front, A_unit, walk=True, k_tile_cols=8)
+    return out
+
+
+def b6_cases(graph, layouts: dict, gen) -> dict:
+    """B6's cases (see the module docstring)."""
+    from gunrock_tpu_torch.ops.kernels import chunkplan, semiring
+
+    dev, V = graph.device, graph.n_vertices
+    L = layouts["luby"]
+    prio = torch.randperm(V, device=dev, generator=gen).float() + 1.0
+    fronts = {"full": torch.ones(V, dtype=torch.bool, device=dev),
+              "tenth": torch.rand(V, device=dev, generator=gen) < 0.1,
+              "hundredth": torch.rand(V, device=dev, generator=gen) < 0.01,
+              "empty": torch.zeros(V, dtype=torch.bool, device=dev)}
+    out = {}
+    for front, act in fronts.items():
+        x = torch.where(act, prio, 0.0)
+        for om, tag in ((act, ""), (None, "_nomask")):
+            ch_act = chunkplan.chunk_activity(L, act, om)[0]
+            n_act = int(ch_act.sum())
+            n_real = int((L.row_local.view(-1, L.chunk)[ch_act]
+                          != L.window).sum())
+            # slots, x, the two masks, ymax and ymin, the chunk metadata
+            out[f"b6_{front}{tag}"] = (
+                lambda x=x, act=act, om=om:
+                    semiring.bucketed_semiring_spmv_sparse_minmax(L, x, act, om),
+                12 * n_real + 8 * n_act + 4 * V + 2 * V + 8 * V, 3 * n_real,
+                {}, {"active_chunks": n_act})
+    return out
+
+
 def _sym_edges(graph):
     """(src, dst) int64 of greedy coloring's symmetrized loop-free edges, on
     the graph's device."""
@@ -227,12 +345,13 @@ def time_case(name: str, case, n: int, dev, **extra) -> dict:
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, device=dev)
     for lib_name, call in library.items():
         row[f"{lib_name}_ms"] = time_ms(dev, call, n)
+        row[f"{lib_name}_device_ms"] = _profile(call, n, dev)[0]
     row["device"] = device_label(dev)
     return row
 
 
 def sweep(graph, layouts: dict, spans: list, k_tiles: list, n: int,
-          gen) -> list:
+          gen, b4: bool = False) -> list:
     """The sweep's lines (see the module docstring); the span lines only
     with a span table, B8's and B5's only with a column span table, the
     K-tile lines only where B5 takes a K tile."""
@@ -256,9 +375,12 @@ def sweep(graph, layouts: dict, spans: list, k_tiles: list, n: int,
     if k_tiles and hasattr(spmm, "K_TILES"):
         for kt in k_tiles:
             cs = cases(graph, layouts, gen, k_tile=kt)
-            for name in ("b5_color", "b5_float", "b5_spgemm"):
-                rows.append(time_case(name, cs[name], n, graph.device,
-                                      k_tile=kt))
+            if b4:
+                cs.update(b4_cases(graph, layouts, gen, k_tile=kt))
+            for name in ("b5_color", "b5_float", "b5_spgemm", "b4_k32"):
+                if name in cs:
+                    rows.append(time_case(name, cs[name], n, graph.device,
+                                          k_tile=kt))
     return rows
 
 
@@ -291,6 +413,62 @@ def greedy_passes(graph) -> dict:
             "active_chunks_sum": sum(p[0] for p in timed)}
 
 
+def row_runs(layout, group: int = 32) -> dict:
+    """Runs of one output row in ``layout``: consecutive real slots of one
+    row within each aligned group of ``group`` slots (a warp's), as a
+    kernel folding runs on a warp's lanes meets them. ``mean_run``: real
+    slots per run; ``share_ge_<n>``: the share of real slots in runs of
+    n or more."""
+    import numpy as np
+
+    row = layout.row_local.cpu().numpy().reshape(-1, group)
+    real = row != layout.window
+    head = np.ones_like(real)
+    head[:, 1:] = row[:, 1:] != row[:, :-1]
+    run_id = np.cumsum(head.ravel()) - 1
+    length = np.bincount(run_id)[run_id].reshape(row.shape)[real]
+    n_runs = int((head & real).sum())
+    out = {"group": group, "real_slots": int(real.sum()),
+           "mean_run": float(real.sum() / max(n_runs, 1))}
+    for n in (2, 8, group):
+        out[f"share_ge_{n}"] = float((length >= n).mean()) if length.size else 0.0
+    return out
+
+
+def luby_passes(graph, n: int) -> dict:
+    """The ``luby_passes`` line: what each B6 pass of one Luby coloring ran
+    over, recorded by wrapping the kernel's entry point, and the device
+    time of replaying the timed run's passes (``n`` replays under one
+    profile)."""
+    from gunrock_tpu_torch.algorithms import color
+    from gunrock_tpu_torch.ops.kernels import chunkplan
+
+    kernel, passes = color.bucketed_semiring_spmv_sparse_minmax, []
+
+    def record(layout, x, active, out_mask=None):
+        ch_act = chunkplan.chunk_activity(layout, active, out_mask)[0]
+        passes.append((int(ch_act.sum()), (layout, x, active, out_mask)))
+        return kernel(layout, x, active, out_mask)
+
+    color.bucketed_semiring_spmv_sparse_minmax = record
+    try:
+        res = color.run(graph, seed=1, strategy="luby", device=graph.device)
+    finally:
+        color.bucketed_semiring_spmv_sparse_minmax = kernel
+    timed = passes[len(passes) - res.iterations:]
+    calls = [args for _, args in timed]
+    total, kernels = _profile(lambda: [kernel(*a) for a in calls], n,
+                              graph.device)
+    return {"probe": "pull", "case": "luby_passes",
+            "iterations": res.iterations,
+            "n_chunks": color._color_layout(graph).n_chunks,
+            "active_chunks": [p[0] for p in timed],
+            "active_chunks_sum": sum(p[0] for p in timed),
+            "device_ms_total": total, "kernels_us_total": kernels,
+            "row_runs": row_runs(color._color_layout(graph)),
+            "device": device_label(graph.device)}
+
+
 def build_layouts(graph) -> dict:
     from gunrock_tpu_torch.algorithms import color
     from gunrock_tpu_torch.ops.kernels.layout import (
@@ -306,7 +484,8 @@ def build_layouts(graph) -> dict:
             "big": pull_layout(graph, pad_value=_BIG),
             "hits": push_layout(graph, window=dense_w, chunk=dense_c,
                                 unit=True),
-            "color": color._greedy_color_setup(graph)}
+            "color": color._greedy_color_setup(graph),
+            "luby": color._color_layout(graph)}
 
 
 def main(argv=None) -> int:
@@ -322,20 +501,32 @@ def main(argv=None) -> int:
     p.add_argument("--greedy", action="store_true",
                    help="count each B5 pass's active chunks in one greedy "
                         "coloring")
+    p.add_argument("--b4_b6", action="store_true",
+                   help="also time B4's and B6's cases")
+    p.add_argument("--luby", action="store_true",
+                   help="count each B6 pass's active chunks in one Luby "
+                        "coloring and time them all")
     p.add_argument("--device", default="cuda")
     ns = p.parse_args(argv)
     graph = probe_graph(ns.scale, ns.device)
     layouts = build_layouts(graph)
     gen = torch.Generator(device=graph.device).manual_seed(1)
-    for name, case in cases(graph, layouts, gen).items():
+    timed = cases(graph, layouts, gen)
+    if ns.b4_b6:
+        timed.update(b4_cases(graph, layouts, gen))
+        timed.update(b6_cases(graph, layouts, gen))
+    for name, case in timed.items():
         print(json.dumps(time_case(name, case, ns.num_runs, graph.device)),
               flush=True)
     spans = [int(s) for s in ns.sweep.split(",") if s]
     k_tiles = [int(s) for s in ns.k_tiles.split(",") if s]
-    for row in sweep(graph, layouts, spans, k_tiles, ns.num_runs, gen):
+    for row in sweep(graph, layouts, spans, k_tiles, ns.num_runs, gen,
+                     ns.b4_b6):
         print(json.dumps(row), flush=True)
     if ns.greedy:
         print(json.dumps(greedy_passes(graph)), flush=True)
+    if ns.luby:
+        print(json.dumps(luby_passes(graph, 3)), flush=True)
     return 0
 
 
