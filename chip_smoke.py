@@ -69,7 +69,8 @@ Phases, each raising on failure:
       by the probe kernel (equal counts, equal to the CPU oracle's),
       ``spgemm.run`` counting A.A by both strategies and eight row blocks
       materialized by both (against scipy), ``geo.run`` on the kernel path
-      (the invariants oracle) against the scatter-sum path;
+      (the invariants oracle) against the scatter-sum path, and a second
+      run of each path bit for bit;
    e. the measurement path: the four probe drivers
       (``gunrock_tpu_torch.probes``): the dense pass split into stream,
       gather and scatter at R-MAT 18, W=2048/C=256 with the card's bound,
@@ -211,15 +212,26 @@ def compare_kernels(torch, graph, layouts, k: int) -> dict:
     def err(name, got, want, exact, what):
         record(torch, errs, name, got, want, exact, what)
 
-    for active in (full, tenth):
+    # the chunk plan: the mask exactly, the queue element for element (the
+    # active ids ascending), also with every source active (None), on an
+    # empty frontier and as the span passes ask for it (no queue)
+    for active in (full, tenth, ~full, None):
         for om in (None, half):
-            (ch, queue, count), (want, _, _) = both(
+            (ch, queue, count), (want, want_q, want_n) = both(
                 torch, chunkplan.chunk_activity, chunkplan.chunk_activity_plain,
                 lay, active, om)
             err("chunk_activity", ch, want, True, "mask")
-            ids = torch.sort(queue[: int(count)]).values
-            if not torch.equal(ids, torch.nonzero(want).flatten().to(torch.int32)):
-                raise AssertionError("chunk_activity: queue != active chunk ids")
+            n = int(want_n)
+            if int(count) != n or not torch.equal(queue[:n], want_q[:n]):
+                raise AssertionError(
+                    f"chunk_activity: queue of {int(count)} != the plain "
+                    f"version's {n} ascending active chunk ids")
+            ch, no_q, no_n = chunkplan.chunk_activity(lay, active, om,
+                                                      queue=False)
+            torch.cuda.synchronize()
+            if no_q is not None or no_n is not None:
+                raise AssertionError("chunk_activity: a queue not asked for")
+            err("chunk_activity", ch, want, True, "mask, no queue")
 
     name = "bucketed_semiring_spmv_sparse"
     for sr in ("plus_times", "max_times", "min_plus"):
@@ -901,11 +913,12 @@ def compare_analysis_kernels(torch, graph, layouts, source: int,
     """The analysis family's kernels against their plain versions; raises
     on a mismatch. Returns {kernel: max abs error}. ``layouts``: "geo"
     (the unit push layout), "unit" and "valued" (pull layouts),
-    optionally "empty_row". The two Weiszfeld-step passes by
-    :func:`wstep_err`, with all, 10% and none of the rows still
-    iterating; the banded gather exactly, on random windows with
-    out-of-window indices, and on ``slab`` (a real slab's table,
-    positions and window starts) when given. Also three kernels of the
+    optionally "empty_row", "geo_odd" and "geo_c512". The two
+    Weiszfeld-step passes by :func:`wstep_err`, with all, 10% and none of
+    the rows still iterating, and bit-equal across two calls (a fixed order
+    of summation) on "geo" and "empty_row"; the banded gather exactly,
+    on random windows with out-of-window indices, and on ``slab`` (a real
+    slab's table, positions and window starts) when given. Also three kernels of the
     earlier slices at the shapes only this family gives them: the
     frontier-sparse semiring pass on every level of a BC search from
     ``source`` (float sigma forward over "unit", dependencies backward
@@ -933,14 +946,29 @@ def compare_analysis_kernels(torch, graph, layouts, source: int,
     def keep(name, e):
         errs[name] = max(errs.get(name, 0.0), e)
 
-    for key in [k for k in ("geo", "empty_row") if k in layouts]:
+    def again(name, got, fn, *args):
+        """A second call on the same inputs gives the same bits."""
+        if not all(torch.equal(a, b) for a, b in zip(got, fn(*args))):
+            raise AssertionError(f"{name}: two calls on the same inputs "
+                                 "differ")
+
+    for key in [k for k in ("geo", "empty_row", "geo_odd", "geo_c512")
+                if k in layouts]:
         L = layouts[key]
-        for share in (0.1, 0.6):
+        # every sum has a fixed order, whatever the layout (empty_row's
+        # edges are not in CSR order: a row has several runs in a chunk),
+        # so a second call gives the same bits; the extra chunk sizes
+        # take one share of labels
+        fixed = key in ("geo", "empty_row")
+        for share in (0.1, 0.6) if key in ("geo", "empty_row") else (0.6,):
             args = wstep_inputs(torch, L, gen, share)
             name = "weiszfeld_step_sums"
-            keep(name, wstep_err(torch, f"{name} {key}", *both(
-                torch, geo_step.weiszfeld_step_sums,
-                geo_step.weiszfeld_step_sums_plain, L, *args)))
+            got, want = both(torch, geo_step.weiszfeld_step_sums,
+                             geo_step.weiszfeld_step_sums_plain, L, *args)
+            keep(name, wstep_err(torch, f"{name} {key}", got, want))
+            if fixed:
+                again(f"{name} {key}", got, geo_step.weiszfeld_step_sums, L,
+                      *args)
             name = "weiszfeld_step_sums_sparse"
             for p in (1.0, 0.1, 0.0):
                 undone = torch.rand(V, device=dev, generator=gen) < p
@@ -950,6 +978,10 @@ def compare_analysis_kernels(torch, graph, layouts, source: int,
                     undone)
                 keep(name, wstep_err(torch, f"{name} {key} undone {p}", got,
                                      want))
+                if fixed:
+                    again(f"{name} {key} undone {p}", got,
+                          geo_step.weiszfeld_step_sums_sparse, L, *args,
+                          undone)
                 if p == 0.0 and any(bool(y.any()) for y in got):
                     raise AssertionError(f"{name} {key}: sums without a row "
                                          "that iterates")
@@ -1042,6 +1074,7 @@ def check_edge_shapes(torch, dev) -> None:
     from gunrock_tpu_torch.formats import Coo
     from gunrock_tpu_torch.graph import build_graph
     from gunrock_tpu_torch.ops.kernels import (
+        chunkplan,
         geo_step,
         hits_fused,
         mst_min,
@@ -1084,6 +1117,16 @@ def check_edge_shapes(torch, dev) -> None:
     errs.update(compare_family_kernels(torch, graph, layouts, 0))
     errs.update(compare_frontier_kernels(torch, graph, layouts, 5))
     layouts["geo"] = layouts["hits"]  # the unit push layout at W=128
+    # B9 also with chunks of 125 slots (a tile with idle threads) and of
+    # 512 (two tiles a chunk: a row's run cut at the tile's end)
+    h = graph.host
+    ones = np.ones(graph.n_edges, np.float32)
+    layouts["geo_odd"] = build_bucketed_layout(
+        h["edge_src"], h["col_indices"], ones, V, window=W, chunk=125,
+        device=dev)
+    layouts["geo_c512"] = build_bucketed_layout(
+        h["edge_src"], h["col_indices"], ones, V, window=W, chunk=512,
+        device=dev)
     analysis = compare_analysis_kernels(
         torch, graph, layouts, int(np.argmax(np.diff(graph.host["row_offsets"]))),
         (64, 32))
@@ -1104,11 +1147,8 @@ def check_edge_shapes(torch, dev) -> None:
         errs[name] = max(errs.get(name, 0.0), e)
     # B8 and B5 on their span tables: several spans per block (P = 3) and
     # scalar loads (C = 125, no multiple of 4) too
-    h = graph.host
     layouts["hits_p3"] = layouts["hits"].with_span_chunks(3)
-    layouts["hits_odd"] = build_bucketed_layout(
-        h["edge_src"], h["col_indices"], np.ones(graph.n_edges, np.float32),
-        V, window=W, chunk=125, device=dev)
+    layouts["hits_odd"] = layouts["geo_odd"]
     layouts["rank_p3"] = layouts["rank"].with_span_chunks(3)
     for name, e in compare_hits_spmm_spans(
             torch, layouts, ("hits", "hits_p3", "hits_odd", "edgeless"),
@@ -1143,6 +1183,9 @@ def check_edge_shapes(torch, dev) -> None:
                 torch.zeros(V, dtype=torch.int32, device=dev))
                 == mst_min.NO_CUT).all())):
         raise AssertionError("edgeless layout: not the identity")
+    ch, queue, count = chunkplan.chunk_activity(edgeless, act, act)
+    if ch.numel() or queue.numel() or int(count) != 0:
+        raise AssertionError("edgeless layout: a chunk plan with chunks")
     ymax, ymin = semiring.bucketed_semiring_spmv_sparse_minmax(edgeless, x, act)
     if not (bool((ymax == 0).all()) and bool((ymin == semiring._BIG).all())):
         raise AssertionError("edgeless layout: max/min not (0, _BIG)")
@@ -1284,17 +1327,27 @@ def check_kernels(torch, graph, layouts):
     full = torch.ones(V, dtype=torch.bool, device=dev)
     rows, timed = {}, {}
 
-    # chunk plan: masks in, mask + queue out
-    b, by = bound_ms(2 * V + 16 * n_chunks + n_chunks + 4 * n_chunks,
-                     4 * n_chunks)
+    # chunk plan as the span passes call it: masks in, the chunk mask out
+    # (four metadata words a chunk in); one device kernel a call
+    b, by = bound_ms(2 * V + 16 * n_chunks + n_chunks, 4 * n_chunks)
+    prof = device_profile(lambda: chunkplan.chunk_activity(lay, full, full,
+                                                           queue=False))
+    launched = {k: n for k, (_, n) in prof.get("top_us", {}).items()}
+    if list(launched.values()) != [1]:
+        raise AssertionError(f"chunk_activity: one call ran {launched}, not "
+                             "one device kernel")
     rows["chunk_activity"] = dict(
         route="cuda", source="gunrock_tpu_torch/csrc/chunkplan.cu",
         replaces="gunrock_tpu/ops/pallas/chunkplan.py:61",
         max_abs_err=errs["chunk_activity"],
         ms=time_ms(torch, timed.setdefault(
-            "chunk_activity", lambda: chunkplan.chunk_activity(lay, full, full))),
-        plain_ms=time_ms(torch, lambda: chunkplan.chunk_activity_plain(lay, full, full)),
+            "chunk_activity", lambda: chunkplan.chunk_activity(
+                lay, full, full, queue=False))),
+        plain_ms=time_ms(torch, lambda: chunkplan.chunk_activity_plain(
+            lay, full, full, queue=False)),
         bound_ms=b, bound_by=by, library_ms=None)
+    print("chunk_activity with its ascending queue, ms:", time_ms(
+        torch, lambda: chunkplan.chunk_activity(lay, full, full)))
 
     # the BFS pull (plus_times, unit) on a full frontier, so that one
     # torch.sparse.mm over the pull matrix computes the same y
@@ -2297,13 +2350,13 @@ def analysis_path(torch, graph, order) -> dict:
     bad = cpu_reference.geo_invariants(graph, lat, lon, got_lat, got_lon)
     if bad:
         raise AssertionError(f"geo: {bad} invariant violations")
-    # the scatter-sum path, twice: both paths add in f32 in whatever order
-    # the atomics land, a vertex that converges slowly stops where that
-    # noise lets its step fall under eps, and so two runs of one path
-    # already differ by several 1e-3 degrees on a few dozen vertices. The
-    # JAX package's tolerance between its two paths (rtol 2e-3, atol 2e-3)
-    # is therefore held on all but 1 in 10,000 of the located vertices,
-    # beside the same count between two runs of each path.
+    # the scatter-sum path, twice. Each path adds in a fixed order (the run
+    # and row passes of csrc/geo_step.cu; torch.segment_reduce over the CSR
+    # ranges), so two runs of one path must give the same bits, NaNs in
+    # the same places. The two paths add in different orders, and a vertex
+    # that converges slowly stops where its step first falls under eps, so
+    # between the paths the JAX package's tolerance (rtol 2e-3, atol 2e-3)
+    # is held on all but 1 in 10,000 of the located vertices.
     plain, again = (geo.run(graph, lat, lon, options=Options(), warmup=False,
                             device=dev) for _ in range(2))
     located = np.isfinite(got_lat)
@@ -2322,27 +2375,30 @@ def analysis_path(torch, graph, order) -> dict:
                | (d_lon > 2e-3 + 2e-3 * np.abs(b_lon[located])))
         return int(bad.sum()), float(max(d_lat.max(), d_lon.max()))
 
+    def same_bits(what, a, b):
+        for x, y in ((a.latitude, b.latitude), (a.longitude, b.longitude)):
+            x, y = x.cpu().numpy(), y.cpu().numpy()
+            if not np.array_equal(x, y, equal_nan=True):
+                n = int((~((x == y) | (np.isnan(x) & np.isnan(y)))).sum())
+                raise AssertionError(f"geo: two {what} runs differ at {n} "
+                                     "vertices")
+
+    same_bits("scatter-sum", plain, again)
+    rerun = geo.run(graph, lat, lon, warmup=False, device=dev)
+    same_bits("kernel-path", rerun, res)
     n_out, diff = outside(res, plain)
-    n_out_plain, diff_plain = outside(again, plain)
-    n_out_kernel, diff_kernel = outside(
-        geo.run(graph, lat, lon, warmup=False, device=dev), res)
     if n_out * 10_000 > int(located.sum()):
         raise AssertionError(
             f"geo: {n_out} of {int(located.sum())} located vertices differ "
             f"between the kernel path and the scatter-sum path by more than "
-            f"2e-3 + 2e-3 |x| (largest {diff}); two scatter-sum runs: "
-            f"{n_out_plain} (largest {diff_plain}); two kernel-path runs: "
-            f"{n_out_kernel} (largest {diff_kernel})")
+            f"2e-3 + 2e-3 |x| (largest {diff})")
     out["geo"] = {"ms": res.elapsed_ms, "plain_ms": plain.elapsed_ms,
                   "steps": res.steps, "plain_steps": plain.steps,
                   "labeled": int(np.isfinite(lat).sum()),
                   "located": int(located.sum()),
                   "outside_tolerance_vs_plain_path": n_out,
                   "max_abs_diff_vs_plain_path": diff,
-                  "outside_tolerance_plain_rerun": n_out_plain,
-                  "max_abs_diff_plain_rerun": diff_plain,
-                  "outside_tolerance_kernel_rerun": n_out_kernel,
-                  "max_abs_diff_kernel_rerun": diff_kernel}
+                  "reruns_bit_equal": True}
 
     out["profile"] = {
         "bc": device_profile(lambda: bc.run(

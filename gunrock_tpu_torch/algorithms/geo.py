@@ -67,12 +67,14 @@ def midpoint(lat1, lon1, lat2, lon2):
     return mlat * deg, mlon * deg
 
 
-def _seg_sum(vals, seg, n: int):
-    """Per-segment sums of the rows of ``vals`` ([K, E]) by scatter: not
-    the cumulative-sum difference, whose f32 prefix over millions of
+def _seg_sum(offsets, *vals):
+    """Per-vertex sums of each of ``vals`` (f32[E], edges in CSR order) over
+    the vertices' edge ranges ``offsets`` (int64[V + 1]): one segment
+    reduction each, whose order of addition is fixed, so that two runs on
+    the card give the same bits (a scatter by atomics does not). Not the
+    cumulative-sum difference, whose f32 prefix over millions of
     coordinates has a degrees-scale ulp."""
-    return torch.zeros((vals.shape[0], n), dtype=vals.dtype,
-                       device=vals.device).index_add_(1, seg, vals)
+    return tuple(torch.segment_reduce(v, "sum", offsets=offsets) for v in vals)
 
 
 def _weiszfeld_update(sums, n_valid, y_lat, y_lon, out_lat, out_lon, done,
@@ -130,6 +132,7 @@ def geo_kernel(
         return lat, lon
     src = graph.edge_src.long()
     dst = graph.col_indices.long()
+    offsets = graph.row_offsets.long()
     eid = torch.arange(E, dtype=torch.int32, device=dev)
 
     for _ in range(total_iterations):
@@ -144,10 +147,10 @@ def geo_kernel(
 
         # count and mean of the valid neighbors (the median's start).
         # Counts in f32: exact while max degree < 2^24.
-        base = _seg_sum(torch.stack([nb_ok.float(), mlat, mlon]), src, V)
-        n_valid = base[0]
+        n_valid, sum_lat, sum_lon = _seg_sum(offsets, nb_ok.float(), mlat,
+                                             mlon)
         denom = torch.clamp(n_valid, min=1.0)
-        y_lat, y_lon = base[1] / denom, base[2] / denom
+        y_lat, y_lon = sum_lat / denom, sum_lon / denom
 
         # first and last valid neighbor per vertex (the 1- and 2-cases)
         first_e = torch.full((V,), E, dtype=torch.int32, device=dev)
@@ -185,8 +188,8 @@ def geo_kernel(
                 d = haversine(mlat, mlon, y_lat[src], y_lon[src])
                 ok = nb_ok & (d != 0)
                 dinv = torch.where(ok, 1.0 / torch.clamp(d, min=1e-30), 0.0)
-                sums = _seg_sum(torch.stack(
-                    [ok.float(), dinv, dinv * mlat, dinv * mlon]), src, V)
+                sums = _seg_sum(offsets, ok.float(), dinv, dinv * mlat,
+                                dinv * mlon)
             y_lat, y_lon, out_lat, out_lon, done = _weiszfeld_update(
                 sums, n_valid, y_lat, y_lon, out_lat, out_lon, done, eps)
             i += 1

@@ -195,7 +195,7 @@ def bucketed_semiring_spmv_sparse(
             layout, x, active, semiring, out_mask, unit=unit)
     if dev.type != "cuda":
         raise ValueError(f"no semiring kernel for device {dev}")
-    ch_act = chunk_activity(layout, active, out_mask)[0]
+    ch_act = chunk_activity(layout, active, out_mask, queue=False)[0]
     return _finish(_pull(layout, x, semiring, unit, ch_act,
                          "bucketed_semiring_spmv_sparse"), V, semiring)
 
@@ -250,7 +250,7 @@ def bucketed_semiring_spmv_sparse_minmax(
             layout, x, active, out_mask)
     if dev.type != "cuda":
         raise ValueError(f"no semiring kernel for device {dev}")
-    ch_act = chunk_activity(layout, active, out_mask)[0]
+    ch_act = chunk_activity(layout, active, out_mask, queue=False)[0]
     y = _pull(layout, x, _MAX_MIN, False, ch_act,
               "bucketed_semiring_spmv_sparse_minmax").view(2, -1)
     return y[0, :V], y[1, :V]

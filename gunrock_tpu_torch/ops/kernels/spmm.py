@@ -196,7 +196,7 @@ def bucketed_spmm_sparse(layout: BucketedEdges, x: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"no SpMM kernel for device {dev}")
     kt = k_tile(K, layout.window) if k_tile_cols is None else k_tile_cols
-    ch_act = chunk_activity(layout, active, out_mask)[0]
+    ch_act = chunk_activity(layout, active, out_mask, queue=False)[0]
     return _launch(layout, x, ch_act, kt, layout.window, False, False,
                    "bucketed_spmm_sparse")
 

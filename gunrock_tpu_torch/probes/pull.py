@@ -69,6 +69,29 @@ busy time of replaying the recorded passes, per replay of the whole
 sequence) split by kernel, and the row runs of Luby's layout
 (:func:`row_runs`).
 
+``--b2_b9`` adds (after them):
+
+  b2_unit_<front>[_nomask]  B2 (``chunk_activity``, as the span passes
+             call it: the mask, no queue) over the unit pull layout
+             (20,548 chunks at R-MAT 18) on a full, 10%, 1% and empty
+             frontier, with a 50% out_mask and without
+  b2_luby_<front>[_nomask]  the same over Luby's layout (36,028 chunks),
+             out_mask the frontier (as Luby's rounds call it)
+  b9_dense   B9 (``weiszfeld_step_sums``) over the unit push layout, 10%
+             of the vertices labeled, every 8th row's iterate on a
+             labeled neighbour (distance 0)
+  b9_sparse_full, b9_sparse_tenth, b9_sparse_none  the chunk-skipping B9
+             (``weiszfeld_step_sums_sparse``, its chunk plan included) on
+             the same inputs with every, 10% and no row iterating
+
+``--geo`` adds one line, ``geo_passes``: the active chunks of every
+chunk-skipping Weiszfeld step of one ``geo.run`` (the example's default
+labels, 10% of the vertices), the device time of replaying all of them
+(``device_ms_total``, chunk plan included) split by kernel, and the
+on-path bound (``bound_ms_total``): each step's active chunks' real slots
+at 16 B (row, coordinates, ok) plus the four sums' 16 B a vertex, over
+the card's memory rate.
+
 ``--sweep 4,8,16,32`` adds one line per P: b3_valued, b3_pr, b1_full, b8_hits
 and b5_color with both span tables cut at P
 (``BucketedEdges.with_span_chunks``); ``--k_tiles 4,8,16`` one line per K
@@ -79,7 +102,7 @@ earlier tree's kernels.
 
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
        [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--b4_b6]
-       [--luby] [--device cuda]
+       [--luby] [--b2_b9] [--geo] [--device cuda]
 """
 
 from __future__ import annotations
@@ -324,6 +347,146 @@ def b6_cases(graph, layouts: dict, gen) -> dict:
     return out
 
 
+def _plan(chunkplan, L, act, om):
+    """B2 as the span passes call it: the mask alone on a tree whose
+    ``chunk_activity`` can leave the queue out, the whole plan on an
+    earlier one."""
+    if "queue" in inspect.signature(chunkplan.chunk_activity).parameters:
+        return lambda: chunkplan.chunk_activity(L, act, om, queue=False)
+    return lambda: chunkplan.chunk_activity(L, act, om)
+
+
+def b2_cases(graph, layouts: dict, gen) -> dict:
+    """B2's cases (see the module docstring)."""
+    from gunrock_tpu_torch.ops.kernels import chunkplan
+
+    dev, V = graph.device, graph.n_vertices
+    half = torch.rand(V, device=dev, generator=gen) < 0.5
+    fronts = {"full": torch.ones(V, dtype=torch.bool, device=dev),
+              "tenth": torch.rand(V, device=dev, generator=gen) < 0.1,
+              "hundredth": torch.rand(V, device=dev, generator=gen) < 0.01,
+              "empty": torch.zeros(V, dtype=torch.bool, device=dev)}
+    out = {}
+    for key in ("unit", "luby"):
+        L = layouts[key]
+        for front, act in fronts.items():
+            for om, tag in ((half if key == "unit" else act, ""),
+                            (None, "_nomask")):
+                n_act = int(chunkplan.chunk_activity_plain(L, act, om)[0].sum())
+                # the masks, four metadata words a chunk, the mask out
+                out[f"b2_{key}_{front}{tag}"] = (
+                    _plan(chunkplan, L, act, om),
+                    (2 if om is not None else 1) * V + 17 * L.n_chunks, 0,
+                    {}, {"n_chunks": L.n_chunks, "active_chunks": n_act})
+    return out
+
+
+def wstep_inputs(L, gen, labeled_share: float = 0.1):
+    """(y_lat, y_lon, mlat3, mlon3, ok3) for B9 over layout ``L``: a
+    ``labeled_share`` of the vertices carry random coordinates, the slot
+    tables as ``geo_kernel`` builds them, a random iterate except on every
+    8th row, which sits on one of its labeled neighbours."""
+    from gunrock_tpu_torch.algorithms import geo
+    from gunrock_tpu_torch.ops.kernels.layout import slot_indices
+
+    dev, V = L.device, L.n_vertices
+
+    def coords():
+        return (torch.rand(V, device=dev, generator=gen) * 120 - 60,
+                torch.rand(V, device=dev, generator=gen) * 360 - 180)
+
+    labeled = torch.rand(V, device=dev, generator=gen) < labeled_share
+    (lat, lon), (y_lat, y_lon) = coords(), coords()
+    slot_dst, slot_valid = geo.slot_tables(L)
+    ok_slot = slot_valid & labeled[slot_dst]
+    mlat3 = torch.where(ok_slot, lat[slot_dst], 0.0)
+    mlon3 = torch.where(ok_slot, lon[slot_dst], 0.0)
+    row, _, slot = slot_indices(L)
+    keep = ok_slot[slot]
+    best = torch.full((V,), -1, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, row[keep], slot[keep], reduce="amax",
+                         include_self=True)
+    on = (best >= 0) & (torch.arange(V, device=dev) % 8 == 0)
+    at = torch.clamp(best, min=0)
+    y_lat = torch.where(on, mlat3[at], y_lat)
+    y_lon = torch.where(on, mlon3[at], y_lon)
+    return y_lat, y_lon, mlat3, mlon3, ok_slot.float()
+
+
+def _wstep_bytes(L, ch_act=None) -> int:
+    """What a Weiszfeld step must move: 16 B per real slot of the (active)
+    chunks and the four sums' 16 B per vertex."""
+    real = L.row_local.view(-1, L.chunk) != L.window
+    if ch_act is not None:
+        real = real[ch_act]
+    return 16 * int(real.sum()) + 16 * L.n_vertices
+
+
+def b9_cases(graph, layouts: dict, gen) -> dict:
+    """B9's cases (see the module docstring)."""
+    from gunrock_tpu_torch.ops.kernels import chunkplan, geo_step
+
+    dev, V = graph.device, graph.n_vertices
+    L = layouts["geo"]
+    args = wstep_inputs(L, gen)
+    n_ok = int(args[4].sum())
+    out = {"b9_dense": (lambda: geo_step.weiszfeld_step_sums(L, *args),
+                        _wstep_bytes(L), 30 * n_ok, {}, {"labeled_slots": n_ok})}
+    for name, undone in (
+            ("full", torch.ones(V, dtype=torch.bool, device=dev)),
+            ("tenth", torch.rand(V, device=dev, generator=gen) < 0.1),
+            ("none", torch.zeros(V, dtype=torch.bool, device=dev))):
+        ch_act = chunkplan.chunk_activity_plain(L, torch.ones_like(undone),
+                                                undone)[0]
+        out[f"b9_sparse_{name}"] = (
+            lambda undone=undone: geo_step.weiszfeld_step_sums_sparse(
+                L, *args, undone),
+            _wstep_bytes(L, ch_act), 30 * n_ok, {},
+            {"active_chunks": int(ch_act.sum()), "labeled_slots": n_ok})
+    return out
+
+
+def geo_passes(graph, n: int) -> dict:
+    """The ``geo_passes`` line: every chunk-skipping Weiszfeld step of one
+    ``geo.run``, recorded by wrapping the kernel's entry point, replayed
+    ``n`` times under one profile."""
+    from gunrock_tpu_torch.algorithms import geo
+    from gunrock_tpu_torch.examples.geo import default_labels
+    from gunrock_tpu_torch.ops.kernels import chunkplan
+    from gunrock_tpu_torch.utils.roofline import bound_ms
+
+    kernel, calls = geo.weiszfeld_step_sums_sparse, []
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    lat, lon = default_labels(graph.n_vertices)
+    geo.weiszfeld_step_sums_sparse = record
+    try:
+        res = geo.run(graph, lat, lon, warmup=False, device=graph.device)
+    finally:
+        geo.weiszfeld_step_sums_sparse = kernel
+    active, n_bytes = [], 0
+    for args in calls:
+        L, undone = args[0], args[-1]
+        ch_act = chunkplan.chunk_activity_plain(L, torch.ones_like(undone),
+                                                undone)[0]
+        active.append(int(ch_act.sum()))
+        n_bytes += _wstep_bytes(L, ch_act)
+    total, kernels = _profile(lambda: [kernel(*a) for a in calls], n,
+                              graph.device)
+    row = {"probe": "pull", "case": "geo_passes", "steps": res.steps,
+           "n_chunks": calls[0][0].n_chunks if calls else 0,
+           "active_chunks": active, "active_chunks_sum": sum(active),
+           "device_ms_total": total, "kernels_us_total": kernels,
+           "geo_ms": res.elapsed_ms}
+    if graph.device.type == "cuda":
+        row["bound_ms_total"] = bound_ms(n_bytes, 0, device=graph.device)[0]
+    row["device"] = device_label(graph.device)
+    return row
+
+
 def _sym_edges(graph):
     """(src, dst) int64 of greedy coloring's symmetrized loop-free edges, on
     the graph's device."""
@@ -485,7 +648,8 @@ def build_layouts(graph) -> dict:
             "hits": push_layout(graph, window=dense_w, chunk=dense_c,
                                 unit=True),
             "color": color._greedy_color_setup(graph),
-            "luby": color._color_layout(graph)}
+            "luby": color._color_layout(graph),
+            "geo": push_layout(graph, unit=True)}
 
 
 def main(argv=None) -> int:
@@ -506,6 +670,11 @@ def main(argv=None) -> int:
     p.add_argument("--luby", action="store_true",
                    help="count each B6 pass's active chunks in one Luby "
                         "coloring and time them all")
+    p.add_argument("--b2_b9", action="store_true",
+                   help="also time B2's and B9's cases")
+    p.add_argument("--geo", action="store_true",
+                   help="count each Weiszfeld step's active chunks in one "
+                        "geo run and time them all")
     p.add_argument("--device", default="cuda")
     ns = p.parse_args(argv)
     graph = probe_graph(ns.scale, ns.device)
@@ -515,6 +684,9 @@ def main(argv=None) -> int:
     if ns.b4_b6:
         timed.update(b4_cases(graph, layouts, gen))
         timed.update(b6_cases(graph, layouts, gen))
+    if ns.b2_b9:
+        timed.update(b2_cases(graph, layouts, gen))
+        timed.update(b9_cases(graph, layouts, gen))
     for name, case in timed.items():
         print(json.dumps(time_case(name, case, ns.num_runs, graph.device)),
               flush=True)
@@ -527,6 +699,8 @@ def main(argv=None) -> int:
         print(json.dumps(greedy_passes(graph)), flush=True)
     if ns.luby:
         print(json.dumps(luby_passes(graph, 3)), flush=True)
+    if ns.geo:
+        print(json.dumps(geo_passes(graph, 3)), flush=True)
     return 0
 
 
