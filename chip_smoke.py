@@ -16,10 +16,14 @@ Phases, each raising on failure:
    The semiring family's kernels (dense pass, fused HITS pass, SSSP push
    step) are checked the same way, also with negative values and a row
    window no chunk reaches, at the W=2048/C=256 pull layouts and the
-   W=4096/C=1024 PageRank and HITS layouts.
+   W=4096/C=1024 PageRank and HITS layouts; the push step exactly over
+   every frontier of a search, the top-degree vertex alone and every
+   vertex at once.
    The frontier family's kernels (fused max/min pass, frontier-sparse
    SpMM, Boruvka min-cut pass) likewise, over the symmetrized coloring
-   layouts and the doubled canonical MST layout.
+   layouts and the doubled canonical MST layout; the min-cut pass exactly
+   with V, V/8 and 1 random roots and with the real roots after rounds 1
+   and 2 of one ``mst.run``.
    The analysis family's kernels (the Weiszfeld step, dense and
    chunk-skipping, and the banded gather) likewise,
    over the unit push layout with 10% of the vertices labeled and a real
@@ -682,17 +686,30 @@ def compare_family_kernels(torch, graph, layouts, source: int) -> dict:
             sum_check(torch, f"{name} auth_raw", a_k, dst, hub[src].double(), a_p))
 
     name = "sssp_push_step"
-    for front, dist in sssp_frontiers(torch, graph, source):
-        imp_k, new_k = sssp.sssp_push_step(graph, front, dist, 0)
+    states = sssp_frontiers(torch, graph, source)
+    # also the top-degree vertex alone (every edge of the expansion one
+    # vertex's) and every vertex at once, over a search's middle distances
+    # stretched (2d + 1, weights are below 1.1) so that the hub's edges
+    # improve its neighbours
+    hub = int(torch.argmax(graph.out_degrees()))
+    dist = states[len(states) // 2][1] * 2.0 + 1.0
+    dist[hub] = 0.0
+    alone = torch.zeros(V, dtype=torch.bool, device=dev)
+    alone[hub] = True
+    cases = [("step", front, d) for front, d in states]
+    cases += [("single hub", alone, dist),
+              ("full frontier", torch.ones_like(alone), dist)]
+    for what, front, d in cases:
+        imp_k, new_k = sssp.sssp_push_step(graph, front, d, 0)
         torch.cuda.synchronize()
-        imp_p, new_p = sssp.sssp_push_step_plain(graph, front, dist)
-        err(name, imp_k, imp_p, True, "improved")
-        err(name, new_k, new_p, True, "distances")
+        imp_p, new_p = sssp.sssp_push_step_plain(graph, front, d)
+        err(name, imp_k, imp_p, True, f"{what} improved")
+        err(name, new_k, new_p, True, f"{what} distances")
     return errs
 
 
 def compare_frontier_kernels(torch, graph, layouts, k: int,
-                             k_batch: int = 8) -> dict:
+                             k_batch: int = 8, real_roots=()) -> dict:
     """The frontier family's kernels against their plain versions; raises
     on a mismatch. Returns {kernel: max abs error}. ``layouts``: "color"
     (symmetrized, loop-free, unit values), "rank" (the same edges, 0/1
@@ -706,7 +723,8 @@ def compare_frontier_kernels(torch, graph, layouts, k: int,
     the shapes only this family gives them: the frontier-sparse semiring
     pass as rank coloring calls it over "rank" (exact), and the SpMM at
     ``k_batch`` columns over "unit" (the pull layout) as the batched PPR
-    does (:func:`sum_check`)."""
+    does (:func:`sum_check`). The min-cut pass also on each of
+    ``real_roots`` (:func:`mst_round_roots`)."""
     from gunrock_tpu_torch.ops.kernels import chunkplan, mst_min, semiring, spmm
 
     dev = graph.device
@@ -814,7 +832,23 @@ def compare_frontier_kernels(torch, graph, layouts, k: int,
             if n_roots == 1 and not bool((got == mst_min.NO_CUT).all()):
                 raise AssertionError(f"{name} {key}: a cut edge inside one "
                                      "component")
+        for r, roots in enumerate(real_roots, 1):
+            err(name, *both(torch, mst_min.bucketed_min_rank_cut,
+                            mst_min.bucketed_min_rank_cut_plain, L, ranks,
+                            roots), f"{key} roots after round {r}")
     return errs
+
+
+def mst_round_roots(graph) -> list:
+    """The roots the min-cut pass gets after rounds 1 and 2 of one
+    ``mst.run`` (fewer if it ends sooner), recorded by wrapping the
+    kernel's entry point."""
+    from gunrock_tpu_torch.algorithms import mst
+    from gunrock_tpu_torch.probes.pull import record_calls
+
+    _, calls = record_calls(mst, "bucketed_min_rank_cut", lambda: mst.run(
+        graph, warmup=False, device=graph.device))
+    return [roots for _, _, roots in calls[1:3]]
 
 
 def wstep_inputs(torch, L, gen, labeled_share: float):
@@ -1585,7 +1619,8 @@ def frontier_kernel_rows(torch, graph, layouts, timed) -> tuple:
 
     dev = graph.device
     V = graph.n_vertices
-    errs = compare_frontier_kernels(torch, graph, layouts, K)
+    errs = compare_frontier_kernels(torch, graph, layouts, K,
+                                    real_roots=mst_round_roots(graph))
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     full = torch.ones(V, dtype=torch.bool, device=dev)
     rows = {}

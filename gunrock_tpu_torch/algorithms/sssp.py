@@ -45,7 +45,9 @@ from gunrock_tpu_torch.utils.timer import timed
 
 INF = float("inf")
 _INT_MAX = torch.iinfo(torch.int32).max
-_BLOCKS_PER_SM = 8
+# the push step's grid: at most this many blocks an SM (and the co-resident
+# ones, and one vertex a thread)
+_BLOCKS_PER_SM = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gr_sssp_push_step": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -106,7 +108,8 @@ def sssp_push_step(graph: Graph, front_mask, distances, edge_budget: int):
     expansion size; the kernel expands exactly the frontier's out-edges,
     so it only keeps the signature.
 
-    CUDA source: ``csrc/sssp_push.cu``."""
+    CUDA source: ``csrc/sssp_push.cu`` (one cooperative launch that
+    spreads the frontier's out-edges over the whole grid)."""
     del edge_budget
     dev = graph.device
     V = graph.n_vertices
@@ -116,17 +119,18 @@ def sssp_push_step(graph: Graph, front_mask, distances, edge_budget: int):
         return sssp_push_step_plain(graph, front_mask, distances)
     if dev.type != "cuda":
         raise ValueError(f"no SSSP push kernel for device {dev}")
-    new_dist = distances.clone()
+    max_blocks = _BLOCKS_PER_SM * _build.sm_count(dev)
+    new_dist = torch.empty(V, dtype=torch.float32, device=dev)
     improved = torch.empty(V, dtype=torch.bool, device=dev)
-    scratch = torch.empty(V + 1, dtype=torch.int32, device=dev)
+    # block counts, queue, scan
+    scratch = torch.empty(2 * max_blocks + 2 * V, dtype=torch.int32, device=dev)
     lib = _build.load("sssp_push", _SIGNATURES)
     err = lib.gr_sssp_push_step(
         _build.ptr(front_mask), V, graph.n_edges,
         _build.ptr(graph.row_offsets),
         _build.ptr(graph.col_indices), _build.ptr(graph.values),
         _build.ptr(distances), _build.ptr(new_dist), _build.ptr(improved),
-        _build.ptr(scratch), _BLOCKS_PER_SM * _build.sm_count(dev),
-        _build.stream(dev),
+        _build.ptr(scratch), max_blocks, _build.stream(dev),
     )
     _build.check(err, "sssp_push_step")
     _build.LAUNCHES["sssp_push_step"] += 1

@@ -199,23 +199,6 @@ __global__ void __launch_bounds__(gr::kThreads) chunk_plan(const Args a) {
   if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) *a.count = base;
 }
 
-// Whether the current device takes a cooperative launch, and how many
-// blocks of chunk_plan it holds at once (0 on an error).
-int coresident_blocks() {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) !=
-          cudaSuccess ||
-      !coop ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chunk_plan,
-                                                    gr::kThreads, 0) !=
-          cudaSuccess)
-    return 0;
-  return sms * per_sm;
-}
-
 }  // namespace
 
 // words: int32 scratch of 1 + n_col_blocks + n_row_blocks + max_blocks,
@@ -231,7 +214,7 @@ extern "C" int gr_chunk_activity(const void* active, const void* out_mask,
                                  void* words, int max_blocks, void* ch_act,
                                  void* queue, void* stream) {
   static int coresident = -1;  // one card per process
-  if (coresident < 0) coresident = coresident_blocks();
+  if (coresident < 0) coresident = gr::coresident_blocks(chunk_plan, gr::kThreads);
   if (coresident == 0) return cudaErrorNotSupported;
   if (window % 32 != 0 || max_blocks < 1) return cudaErrorInvalidValue;
   Args a{};

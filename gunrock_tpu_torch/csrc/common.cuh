@@ -127,31 +127,49 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return s;
 }
 
-// The second pass of the span kernels (semiring.cu, hits_fused.cu): one
-// block of kReduceWarps warps writes entries [r_base, r_base + kStrip) of
-// one output block `y` (a window of `window` floats, window % 4 == 0),
-// combining with Op::apply the touched partials of spans [lo, hi): span s
-// holds `window` floats at partial + s * window, and touched[s] says
-// whether it was written. Warp g takes spans lo + g, lo + g + 16, ...: one
-// touched flag per lane and a ballot name up to 32 of them, whose partials
-// it loads two at a time (the chain of loads of a hub block's many spans,
-// not the bytes, sets the pass's time); a lane holds four float4s of the
-// strip, 128 entries apart. Entries no touched span reaches get `e`. Every
-// thread of the block must call it.
+// The float4 or int4 of four T.
+template <typename T>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using type = float4;
+  static __device__ __forceinline__ float4 fill(float e) {
+    return make_float4(e, e, e, e);
+  }
+};
+template <>
+struct Vec4<int> {
+  using type = int4;
+  static __device__ __forceinline__ int4 fill(int e) {
+    return make_int4(e, e, e, e);
+  }
+};
+
+// The second pass of the span kernels (semiring.cu, hits_fused.cu,
+// mst_min.cu): one block of kReduceWarps warps writes entries [r_base,
+// r_base + kStrip) of one output block `y` (a window of `window` T, float
+// or int, window % 4 == 0), combining with Op::apply the touched partials
+// of spans [lo, hi): span s holds `window` T at partial + s * window, and
+// touched[s] says whether it was written. Warp g takes spans lo + g, lo +
+// g + 16, ...: one touched flag per lane and a ballot name up to 32 of
+// them, whose partials it loads two at a time (the chain of loads of a
+// hub block's many spans, not the bytes, sets the pass's time); a lane
+// holds four 16-byte vectors of the strip, 128 entries apart. Entries no
+// touched span reaches get `e`. Every thread of the block must call it.
 constexpr int kReduceWarps = 16;
 constexpr int kLaneVecs = 4;
 constexpr int kStrip = 128 * kLaneVecs;
 
-template <typename Op>
+template <typename Op, typename T>
 __device__ __forceinline__ void reduce_span_strip(
-    const float* __restrict__ partial, const int* __restrict__ touched,
-    int lo, int hi, int n_spans, int window, int r_base, float e,
-    float* __restrict__ y) {
-  __shared__ float4 part[kReduceWarps][kLaneVecs][32];
+    const T* __restrict__ partial, const int* __restrict__ touched, int lo,
+    int hi, int n_spans, int window, int r_base, T e, T* __restrict__ y) {
+  using V4 = typename Vec4<T>::type;
+  __shared__ V4 part[kReduceWarps][kLaneVecs][32];
   const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
   const int r0 = r_base + 4 * lane;  // window % 4 == 0: all 4 or none
-  const float4 ident = make_float4(e, e, e, e);
-  float4 acc[kLaneVecs];
+  const V4 ident = Vec4<T>::fill(e);
+  V4 acc[kLaneVecs];
 #pragma unroll
   for (int k = 0; k < kLaneVecs; ++k) acc[k] = ident;
   for (int base = lo + g; base < hi; base += 32 * kReduceWarps) {
@@ -159,7 +177,7 @@ __device__ __forceinline__ void reduce_span_strip(
     unsigned todo = __ballot_sync(0xffffffffu, mine < hi &&
                                   GR_IN_RANGE(mine, n_spans) && touched[mine]);
     while (todo) {  // warp-uniform
-      float4 p[2][kLaneVecs];
+      V4 p[2][kLaneVecs];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         int s = -1;
@@ -167,12 +185,12 @@ __device__ __forceinline__ void reduce_span_strip(
           s = base + kReduceWarps * (__ffs(todo) - 1);
           todo &= todo - 1u;
         }
-        const float* src = partial + static_cast<long>(s) * window;
+        const T* src = partial + static_cast<long>(s) * window;
 #pragma unroll
         for (int k = 0; k < kLaneVecs; ++k) {
           const int r = r0 + 128 * k;
           p[j][k] = s >= 0 && r < window
-                        ? *reinterpret_cast<const float4*>(src + r)
+                        ? *reinterpret_cast<const V4*>(src + r)
                         : ident;
         }
       }
@@ -192,7 +210,7 @@ __device__ __forceinline__ void reduce_span_strip(
     if (r >= window) continue;
     for (int w = 1; w < kReduceWarps; ++w)
       acc[k] = Op::apply(acc[k], part[w][k][lane]);
-    *reinterpret_cast<float4*>(y + r) = acc[k];
+    *reinterpret_cast<V4*>(y + r) = acc[k];
   }
 }
 
@@ -202,6 +220,30 @@ struct Add4 {
     return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
   }
 };
+
+// How many blocks of `kernel` (`threads` threads, no dynamic shared
+// memory) the current device holds at once: the most a cooperative
+// launch may take; 0 where it takes no cooperative launch or on an error.
+template <typename Kernel>
+int coresident_blocks(Kernel kernel, int threads) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) !=
+          cudaSuccess ||
+      !coop ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+// Whether `p` (null counts as aligned: a missing optional input) allows
+// 16-byte loads.
+inline bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
 
 // Grid of `kThreads`-thread blocks covering `n` items, at most `cap` blocks
 // (the kernels loop with a grid stride past that).

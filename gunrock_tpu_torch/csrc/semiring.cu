@@ -391,16 +391,12 @@ __global__ void floor_fill(const Args a) {
   for (int r = threadIdx.x; r < a.window; r += blockDim.x) yb[r] = v;
 }
 
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<unsigned long long>(p) % 16 == 0;
-}
-
 // The span pass, with 16-byte loads where C and the arrays allow them.
 template <int kSemiring, bool kUnit, bool kSparse, int kMode>
 int launch_spans(const Args& a, cudaStream_t s) {
   if (a.n_spans <= 0) return cudaSuccess;
-  const bool vec = a.chunk % 4 == 0 && aligned16(a.row) && aligned16(a.col) &&
-                   aligned16(a.val);
+  const bool vec = a.chunk % 4 == 0 && gr::aligned16(a.row) &&
+                   gr::aligned16(a.col) && gr::aligned16(a.val);
   void (*kernel)(Args) = vec ? span_pass<kSemiring, kUnit, kSparse, kMode, true>
                              : span_pass<kSemiring, kUnit, kSparse, kMode, false>;
   const int smem = kMode == kFull

@@ -6,103 +6,111 @@
 // budget, and a scatter-min of the relaxed candidates.
 //
 // Contract (Jacobi, as sssp.py:111-119): with `old` the distances before
-// the step and new_dist == old on entry, for every out-edge (v, u, w) of
-// every frontier vertex v,
-//   new_dist[u] = min(new_dist[u], old[v] + w)
-// and then improved[u] = new_dist[u] < old[u]. Candidates are formed from
+// the step, for every out-edge (v, u, w) of every frontier vertex v,
+//   new_dist[u] = min(old[u], min over those edges of old[v] + w)
+// and improved[u] = new_dist[u] < old[u]. Candidates are formed from
 // `old` only, never from new_dist: a frontier vertex lowered in this step
 // does not feed the same step, so the frontiers and the depth are the
-// reference's.
+// reference's. A float min does not depend on the order of its terms, so
+// the result is exactly the plain version's.
 //
 // What bounds it on this card: launch latency on the levels where the DO
 // switch picks it (frontier out-edges under E/192 on a hub-ordered graph,
 // ~20K edges at R-MAT scale 18). Its bytes are the frontier mask, the
-// queued rows' offsets, edges and weights, the neighbours' distances and
-// one pass over V for the improved mask: a few megabytes at most.
+// distances in and out, the improved mask, and the queued rows' offsets,
+// edges and weights: ~2.6 MB at V = 262,144, under a microsecond.
 //
-// Design: three launches on the caller's stream. gr::compact_frontier
-// (common.cuh) queues the frontier with one warp-aggregated atomicAdd per
-// warp. relax gives each queued vertex one warp whose lanes stride its
-// out-edges (coalesced col/value reads); a candidate that beats the value
-// it reads is sent with the sign-correct float atomic min of common.cuh.
-// mark_improved compares new_dist with old over all V.
+// Design: an edge-balanced expansion, Gunrock's load-balanced advance
+// (gr::expand_frontier in expand.cuh), in one cooperative launch (grid <=
+// the co-resident blocks), no memset and no global atomic but the
+// relaxation's own float min. Each block copies old into new_dist and
+// clears improved over the vertex range it owns while it counts the
+// range's queued vertices and out-edges; after the queue and the scan of
+// the out-degrees, thread t of the grid relaxes the frontier's out-edge
+// ids t, t + T, ...: the candidate is sent with the sign-correct float
+// atomic min of common.cuh only if it beats the value read (new_dist
+// only decreases, so one that does not cannot win later), and a candidate
+// below old[u] marks u improved. That mark is the contract's: new_dist[u]
+// < old[u] iff some candidate is below old[u]; it spares a pass over V
+// after a third grid barrier.
+//
+// The earlier design gave each queued vertex one warp whose lanes strode
+// its out-edges: on the path's largest pushed frontier (one hub, 15,810
+// out-edges) one warp walked ~494 rounds of dependent loads while the
+// other SMs waited, and each call took four device operations (a memset,
+// the frontier's compaction, the relaxation, a pass over V for the marks)
+// beside the wrapper's copy of the distances.
 
-#include "common.cuh"
+#include "expand.cuh"
 
 namespace {
 
-__global__ void relax(const int* __restrict__ queue,
-                      const int* __restrict__ count,
-                      const int* __restrict__ row_offsets,
-                      const int* __restrict__ col_indices,
-                      const float* __restrict__ values,
-                      const float* __restrict__ old_dist,
-                      float* __restrict__ new_dist, int n_vertices,
-                      int n_edges) {
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * (blockDim.x / 32);
-  const int n_front = *count;
-  for (int q = (blockIdx.x * blockDim.x + threadIdx.x) / 32; q < n_front;
-       q += warps) {
-    const int v = queue[q];
-    if (!GR_IN_RANGE(v, n_vertices)) continue;
-    const float dv = old_dist[v];
-    const int begin = row_offsets[v];
-    const int end = row_offsets[v + 1];
-    // the range holds edges begin..end-1; an empty row may sit at n_edges
-    if (begin < end && (!GR_IN_RANGE(begin, n_edges) ||
-                        !GR_IN_RANGE(end - 1, n_edges)))
-      continue;
-    for (int e = begin + lane; e < end; e += 32) {
-      const int u = col_indices[e];
-      if (!GR_IN_RANGE(u, n_vertices)) continue;
-      const float cand = dv + values[e];
-      // new_dist only decreases, so a candidate that does not beat the
-      // value read now cannot win later
-      if (cand < new_dist[u]) gr::atomic_min_float(&new_dist[u], cand);
-    }
-  }
-}
+struct Args {
+  gr::Expansion x;        // the frontier, the CSR offsets and the scratch
+  const int* col_indices;  // int32[n_edges]
+  const float* values;     // f32[n_edges]
+  const float* old_dist;   // f32[n_vertices]
+  float* new_dist;         // f32[n_vertices], written whole
+  unsigned char* improved;  // bool[n_vertices], written whole
+};
 
-__global__ void mark_improved(const float* __restrict__ old_dist,
-                              const float* __restrict__ new_dist,
-                              int n_vertices,
-                              unsigned char* __restrict__ improved) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < n_vertices;
-       v += stride)
-    improved[v] = new_dist[v] < old_dist[v];
+__global__ void __launch_bounds__(gr::kThreads) push_step(const Args a) {
+  gr::expand_frontier(
+      a.x,
+      [&](int v) {
+        a.new_dist[v] = a.old_dist[v];
+        a.improved[v] = 0;
+      },
+      [&](int v, int e) {
+        const int u = a.col_indices[e];
+        if (!GR_IN_RANGE(u, a.x.n_vertices)) return;
+        const float cand = a.old_dist[v] + a.values[e];
+        if (cand < a.new_dist[u]) gr::atomic_min_float(&a.new_dist[u], cand);
+        if (cand < a.old_dist[u]) a.improved[u] = 1;
+      });
 }
 
 }  // namespace
 
-// scratch: int32[1 + n_vertices] ([count | queue]), cleared here.
-// new_dist: float[V], a copy of old_dist on entry. improved: bool[V].
+// new_dist: f32[V] and improved: bool[V], both written whole; old_dist is
+// not written. scratch: int32[2 * max_blocks + 2 * n_vertices], laid out
+// as [block counts | queue | first]; nothing in it needs to be set. The
+// grid is at most max_blocks blocks. Returns cudaErrorNotSupported where
+// the device has no cooperative launch.
 extern "C" int gr_sssp_push_step(const void* front, int n_vertices,
                                  int n_edges, const void* row_offsets,
                                  const void* col_indices, const void* values,
                                  const void* old_dist, void* new_dist,
-                                 void* improved, void* scratch, int blocks,
-                                 void* stream) {
+                                 void* improved, void* scratch,
+                                 int max_blocks, void* stream) {
+  static int coresident = -1;  // one card per process
+  if (coresident < 0) coresident = gr::coresident_blocks(push_step, gr::kThreads);
+  if (coresident == 0) return cudaErrorNotSupported;
+  if (max_blocks < 1) return cudaErrorInvalidValue;
+  Args a{};
+  gr::Expansion& x = a.x;
+  x.front = static_cast<const unsigned char*>(front);
+  x.row_offsets = static_cast<const int*>(row_offsets);
+  x.block_counts = static_cast<int*>(scratch);
+  x.queue = x.block_counts + 2 * max_blocks;
+  x.first = x.queue + n_vertices;
+  x.n_vertices = n_vertices;
+  x.n_edges = n_edges;
+  a.col_indices = static_cast<const int*>(col_indices);
+  a.values = static_cast<const float*>(values);
+  a.old_dist = static_cast<const float*>(old_dist);
+  a.new_dist = static_cast<float*>(new_dist);
+  a.improved = static_cast<unsigned char*>(improved);
+  // at least one vertex a thread in the first phase
+  const long want = (static_cast<long>(n_vertices) + gr::kThreads - 1) / gr::kThreads;
+  int blocks = static_cast<int>(want < 1 ? 1 : want);
+  if (blocks > coresident) blocks = coresident;
+  if (blocks > max_blocks) blocks = max_blocks;
+  void* params[] = {&a};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* count = static_cast<int*>(scratch);
-  int* queue = count + 1;
-  cudaMemsetAsync(count, 0, sizeof(int), s);
-  const int grid_v = gr::grid_for(n_vertices, 4096);
-  gr::compact_frontier<<<grid_v, gr::kThreads, 0, s>>>(
-      static_cast<const unsigned char*>(front), n_vertices, queue, count);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(push_step), dim3(blocks), dim3(gr::kThreads),
+      params, 0, s);
   if (err != cudaSuccess) return err;
-  relax<<<blocks, gr::kThreads, 0, s>>>(
-      queue, count, static_cast<const int*>(row_offsets),
-      static_cast<const int*>(col_indices), static_cast<const float*>(values),
-      static_cast<const float*>(old_dist), static_cast<float*>(new_dist),
-      n_vertices, n_edges);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mark_improved<<<grid_v, gr::kThreads, 0, s>>>(
-      static_cast<const float*>(old_dist),
-      static_cast<const float*>(new_dist), n_vertices,
-      static_cast<unsigned char*>(improved));
   return gr::finish(s);
 }

@@ -72,7 +72,7 @@ def nvcc() -> str:
 
 def library_path(name: str, checked: bool = False) -> Path:
     digest = hashlib.sha256()
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     tag = "-checked" if checked else ""
@@ -150,7 +150,7 @@ def check(err: int, what: str) -> None:
         for (name, checked), lib in _libs.items():
             words = (ctypes.c_longlong * 3)()
             if checked and lib.gr_last_fault(words) == 0 and words[0]:
-                faults.append(f"{name}.cu or common.cuh line {words[0]}: "
+                faults.append(f"{name}.cu or a header, line {words[0]}: "
                               f"index {words[1]} outside [0, {words[2]})")
         raise RuntimeError(f"{what}: range check failed: {'; '.join(faults)}")
     if err != 0:

@@ -18,7 +18,10 @@ ranks, f32 roots and ``_BIG`` are a TPU constraint (exact only below
 as an int32 tensor in slot order beside the layout (``NO_CUT`` on padding
 slots), which ``algorithms/mst.py::_mst_rank_layout`` builds.
 
-CUDA source: ``csrc/mst_min.cu``.
+CUDA source: ``csrc/mst_min.cu``: a block per span of the layout's span
+table reduces its cut edges' ranks into the row window in shared memory
+(int atomicMin), and a combine pass takes the min of each row block's
+spans into y, which the kernel writes whole.
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ from gunrock_tpu_torch.ops.kernels import _build
 from gunrock_tpu_torch.ops.kernels.layout import BucketedEdges, slot_indices
 
 NO_CUT = 2**30
-_BLOCKS_PER_SM = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_min_rank_cut": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _P],
+    "gr_min_rank_cut": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _I, _I, _I, _P],
 }
+# a span block holds the row block's roots and its window, W ints each,
+# beside 1 KB of its own: within the 227 KB one block can take on Hopper
+MAX_WINDOW = (227 * 1024 - 1024) // 8
 
 
 def bucketed_min_rank_cut(layout: BucketedEdges, ranks: torch.Tensor,
@@ -55,15 +60,21 @@ def bucketed_min_rank_cut(layout: BucketedEdges, ranks: torch.Tensor,
         return bucketed_min_rank_cut_plain(layout, ranks, roots)
     if dev.type != "cuda":
         raise ValueError(f"no min-cut kernel for device {dev}")
-    y = torch.full((layout.n_row_blocks * W,), NO_CUT, dtype=torch.int32,
-                   device=dev)
-    blocks = min(layout.n_chunks, _BLOCKS_PER_SM * _build.sm_count(dev))
+    if W % 4 or W > MAX_WINDOW:
+        raise ValueError(f"the min-cut pass takes a window that is a multiple "
+                         f"of 4 and at most {MAX_WINDOW}, got {W}")
+    y = torch.empty(layout.n_row_blocks * W, dtype=torch.int32, device=dev)
+    # the partial windows of the spans, then their touched flags
+    scratch = torch.empty(layout.n_spans * (W + 1), dtype=torch.int32,
+                          device=dev)
     lib = _build.load("mst_min", _SIGNATURES)
     err = lib.gr_min_rank_cut(
-        blocks, layout.n_chunks, _build.ptr(layout.chunk_rb),
-        _build.ptr(layout.chunk_cb), _build.ptr(layout.row_local),
-        _build.ptr(layout.col_local), _build.ptr(ranks), _build.ptr(roots),
-        _build.ptr(y), W, layout.chunk, V, layout.n_row_blocks,
+        layout.n_spans, _build.ptr(layout.span_first_chunk),
+        _build.ptr(layout.rb_first_span), layout.n_chunks,
+        _build.ptr(layout.chunk_rb), _build.ptr(layout.chunk_cb),
+        _build.ptr(layout.row_local), _build.ptr(layout.col_local),
+        _build.ptr(ranks), _build.ptr(roots), _build.ptr(y),
+        _build.ptr(scratch), W, layout.chunk, V, layout.n_row_blocks,
         _build.stream(dev),
     )
     _build.check(err, "bucketed_min_rank_cut")

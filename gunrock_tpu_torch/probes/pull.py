@@ -92,6 +92,23 @@ on-path bound (``bound_ms_total``): each step's active chunks' real slots
 at 16 B (row, coordinates, ok) plus the four sums' 16 B a vertex, over
 the card's memory rate.
 
+``--sssp_push`` adds one line, ``sssp_push_passes``: every push step
+that the DO switch takes in eight DO-SSSP searches (``sssp.run`` from
+the 8 highest-degree vertices, as ``chip_smoke.py``'s semiring path runs
+them), each step's frontier and out-edges, the device time of replaying
+all of them (``device_ms_total``) split by kernel, and the on-path bound
+(``bound_ms_total``: each step's frontier mask, distances in and out,
+improved mask, queued rows' offsets and distances, and each out-edge's
+column, weight and target distance, over the card's memory rate); then
+the case ``sssp_push_largest``, the step with the most out-edges, alone.
+
+``--mst`` adds one line, ``mst_passes``: every min-cut pass (B7,
+``bucketed_min_rank_cut``) of one ``mst.run`` with its real roots, each
+pass's cut slots and device time, their replayed total and the on-path
+bound (12 B a real slot, 8 B a chunk and the roots and y, a pass); then
+the cases ``b7_round1`` (every vertex a root) and ``b7_round2`` (the
+roots after round 1).
+
 ``--sweep 4,8,16,32`` adds one line per P: b3_valued, b3_pr, b1_full, b8_hits
 and b5_color with both span tables cut at P
 (``BucketedEdges.with_span_chunks``); ``--k_tiles 4,8,16`` one line per K
@@ -102,7 +119,7 @@ earlier tree's kernels.
 
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
        [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--b4_b6]
-       [--luby] [--b2_b9] [--geo] [--device cuda]
+       [--luby] [--b2_b9] [--geo] [--sssp_push] [--mst] [--device cuda]
 """
 
 from __future__ import annotations
@@ -446,6 +463,23 @@ def b9_cases(graph, layouts: dict, gen) -> dict:
     return out
 
 
+def record_calls(module, name: str, fn):
+    """(fn's result, calls): run ``fn()`` with ``module.name`` wrapped so
+    that each call's positional arguments are kept, as passed (not
+    copied), in ``calls``."""
+    kernel, calls = getattr(module, name), []
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    setattr(module, name, record)
+    try:
+        return fn(), calls
+    finally:
+        setattr(module, name, kernel)
+
+
 def geo_passes(graph, n: int) -> dict:
     """The ``geo_passes`` line: every chunk-skipping Weiszfeld step of one
     ``geo.run``, recorded by wrapping the kernel's entry point, replayed
@@ -455,18 +489,10 @@ def geo_passes(graph, n: int) -> dict:
     from gunrock_tpu_torch.ops.kernels import chunkplan
     from gunrock_tpu_torch.utils.roofline import bound_ms
 
-    kernel, calls = geo.weiszfeld_step_sums_sparse, []
-
-    def record(*args):
-        calls.append(args)
-        return kernel(*args)
-
+    kernel = geo.weiszfeld_step_sums_sparse
     lat, lon = default_labels(graph.n_vertices)
-    geo.weiszfeld_step_sums_sparse = record
-    try:
-        res = geo.run(graph, lat, lon, warmup=False, device=graph.device)
-    finally:
-        geo.weiszfeld_step_sums_sparse = kernel
+    res, calls = record_calls(geo, "weiszfeld_step_sums_sparse", lambda: geo.run(
+        graph, lat, lon, warmup=False, device=graph.device))
     active, n_bytes = [], 0
     for args in calls:
         L, undone = args[0], args[-1]
@@ -485,6 +511,102 @@ def geo_passes(graph, n: int) -> dict:
         row["bound_ms_total"] = bound_ms(n_bytes, 0, device=graph.device)[0]
     row["device"] = device_label(graph.device)
     return row
+
+
+def _push_bytes(V: int, n_front: int, n_out: int) -> int:
+    """What a push step must move (``chip_smoke.py``'s bound): the
+    frontier mask, the distances in and out and the improved mask over V,
+    each queued row's offsets and distance, each out-edge's column, weight
+    and target distance."""
+    return V + 4 * V + 4 * V + V + 12 * n_front + 12 * n_out
+
+
+def sssp_push_passes(graph, n: int) -> list:
+    """The ``sssp_push_passes`` line and the ``sssp_push_largest`` case
+    (see the module docstring): the push steps of eight DO-SSSP searches,
+    recorded by wrapping the kernel's entry point, replayed ``n`` times
+    under one profile."""
+    from gunrock_tpu_torch.algorithms import sssp
+    from gunrock_tpu_torch.utils.roofline import bound_ms
+
+    dev, V = graph.device, graph.n_vertices
+    deg = graph.out_degrees()
+    kernel = sssp.sssp_push_step
+    sources = torch.argsort(deg, descending=True, stable=True)[:8].tolist()
+    _, calls = record_calls(sssp, "sssp_push_step", lambda: [
+        sssp.run(graph, src, warmup=False, device=dev) for src in sources])
+    sizes = [torch.stack([front.sum(), torch.where(front, deg, 0).sum()]).tolist()
+             for _, front, _, _ in calls]
+
+    def replay():
+        return [kernel(*a) for a in calls]
+
+    total, kernels = _profile(replay, n, dev)
+    row = {"probe": "pull", "case": "sssp_push_passes", "searches": len(sources),
+           "steps": len(calls), "frontier": [f for f, _ in sizes],
+           "out_edges": [e for _, e in sizes],
+           "out_edges_sum": sum(e for _, e in sizes),
+           "ms_total": time_ms(dev, replay, n), "device_ms_total": total,
+           "kernels_us_total": kernels}
+    if dev.type == "cuda":
+        row["bound_ms_total"] = sum(
+            bound_ms(_push_bytes(V, f, e), e, device=dev)[0] for f, e in sizes)
+    row["device"] = device_label(dev)
+    rows = [row]
+    if calls:
+        i = max(range(len(calls)), key=lambda j: sizes[j][1])
+        n_front, n_out = sizes[i]
+        rows.append(time_case("sssp_push_largest", (
+            lambda: kernel(*calls[i]), _push_bytes(V, n_front, n_out), n_out,
+            {}, {"frontier": n_front, "out_edges": n_out}), n, dev))
+    return rows
+
+
+def _cut_bytes(L) -> int:
+    """What a min-cut pass must move: 12 B a real slot (row, col, rank),
+    8 B a chunk, the roots and y (``chip_smoke.py``'s bound)."""
+    return 12 * _n_real(L) + 8 * L.n_chunks + 4 * L.n_vertices + 4 * L.n_vertices
+
+
+def mst_passes(graph, n: int) -> list:
+    """The ``mst_passes`` line and the B7 cases (see the module
+    docstring): the min-cut passes of one ``mst.run``, recorded by
+    wrapping the kernel's entry point, replayed ``n`` times under one
+    profile."""
+    from gunrock_tpu_torch.algorithms import mst
+    from gunrock_tpu_torch.ops.kernels.layout import slot_indices
+    from gunrock_tpu_torch.utils.roofline import bound_ms
+
+    dev = graph.device
+    kernel = mst.bucketed_min_rank_cut
+    res, calls = record_calls(mst, "bucketed_min_rank_cut", lambda: mst.run(
+        graph, warmup=False, device=dev))
+    L, ranks = calls[0][:2]
+    row_ids, col_ids, _ = slot_indices(L)
+    cut = [int((roots[col_ids] != roots[row_ids]).sum()) for _, _, roots in calls]
+    total, kernels = _profile(lambda: [kernel(*a) for a in calls], n, dev)
+    row = {"probe": "pull", "case": "mst_passes", "rounds": res.rounds,
+           "passes": len(calls), "n_chunks": L.n_chunks,
+           "real_slots": _n_real(L), "cut_slots": cut,
+           "device_ms": [_profile(lambda a=a: kernel(*a), n, dev)[0]
+                         for a in calls],
+           "device_ms_total": total, "kernels_us_total": kernels,
+           "mst_ms": res.elapsed_ms}
+    if dev.type == "cuda":
+        row["bound_ms_total"] = len(calls) * bound_ms(
+            _cut_bytes(L), 2 * _n_real(L), device=dev)[0]
+    row["device"] = device_label(dev)
+    rows = [row]
+    cases = {"b7_round1": torch.arange(L.n_vertices, dtype=torch.int32,
+                                       device=dev)}
+    if len(calls) > 1:
+        cases["b7_round2"] = calls[1][2]
+    for name, roots in cases.items():
+        rows.append(time_case(name, (
+            lambda roots=roots: kernel(L, ranks, roots), _cut_bytes(L),
+            2 * _n_real(L), {}, {"cut_slots": int(
+                (roots[col_ids] != roots[row_ids]).sum())}), n, dev))
+    return rows
 
 
 def _sym_edges(graph):
@@ -675,6 +797,11 @@ def main(argv=None) -> int:
     p.add_argument("--geo", action="store_true",
                    help="count each Weiszfeld step's active chunks in one "
                         "geo run and time them all")
+    p.add_argument("--sssp_push", action="store_true",
+                   help="time every push step of eight DO-SSSP searches")
+    p.add_argument("--mst", action="store_true",
+                   help="time every min-cut pass of one MST run, and B7's "
+                        "cases")
     p.add_argument("--device", default="cuda")
     ns = p.parse_args(argv)
     graph = probe_graph(ns.scale, ns.device)
@@ -701,6 +828,12 @@ def main(argv=None) -> int:
         print(json.dumps(luby_passes(graph, 3)), flush=True)
     if ns.geo:
         print(json.dumps(geo_passes(graph, 3)), flush=True)
+    if ns.sssp_push:
+        for row in sssp_push_passes(graph, ns.num_runs):
+            print(json.dumps(row), flush=True)
+    if ns.mst:
+        for row in mst_passes(graph, ns.num_runs):
+            print(json.dumps(row), flush=True)
     return 0
 
 
