@@ -12,7 +12,10 @@ Phases, each raising on failure:
    shapes (R-MAT scale 18, edge factor 16, seed 1, degree-sorted;
    W=2048/C=256 pull layout; K=32 for the SpMM), with CUDA-event times of
    the kernel, its plain version and, where one exists, one PyTorch call
-   computing the same function.
+   computing the same function. The BFS push step exactly on two random
+   frontiers, every frontier of a search from the top-degree vertex,
+   that vertex alone and every vertex at once, and as one device
+   operation a call.
    The semiring family's kernels (dense pass, fused HITS pass, SSSP push
    step) are checked the same way, also with negative values and a row
    window no chunk reaches, at the W=2048/C=256 pull layouts and the
@@ -276,17 +279,52 @@ def compare_kernels(torch, graph, layouts, k: int) -> dict:
     errs["bucketed_spmm"] = max(errs["bucketed_spmm"], sum_check(
         torch, "bucketed_spmm float", got, *layout_terms(lay, xr, False), want))
 
+    # the push step: two random frontiers over a 30%-reached vector, every
+    # frontier of a search from the top-degree vertex, every vertex at
+    # once over the search's middle distances, and that vertex alone over
+    # them with every other of its out-neighbours unreached again
     reached = torch.rand(V, device=dev, generator=gen) < 0.3
     dist0 = torch.where(reached, 1, UNREACHED).to(torch.int32)
-    for p in (0.002, 0.2):
-        front = reached & (torch.rand(V, device=dev, generator=gen) < p)
-        d_k, d_p = dist0.clone(), dist0.clone()
-        new_k, _ = bfs.bfs_push_step(graph, front, d_k, 1, 0)
+    cases = [(f"random {p}", reached & (torch.rand(
+        V, device=dev, generator=gen) < p), dist0, 1) for p in (0.002, 0.2)]
+    hub = int(torch.argmax(graph.out_degrees()))
+    states = bfs_frontiers(torch, graph, hub)
+    cases += [(f"level {it}", front, d, it) for front, d, it in states]
+    _, d_mid, it_mid = states[len(states) // 2]
+    d_hub = d_mid.clone()
+    d_hub[graph.col_indices[graph.row_offsets[hub]:graph.row_offsets[
+        hub + 1]:2].long()] = UNREACHED
+    alone = torch.zeros(V, dtype=torch.bool, device=dev)
+    alone[hub] = True
+    cases += [("single hub", alone, d_hub, it_mid),
+              ("full frontier", torch.ones_like(alone), d_mid, it_mid)]
+    for what, front, d, it in cases:
+        d_k, d_p = d.clone(), d.clone()
+        new_k, _ = bfs.bfs_push_step(graph, front, d_k, it, 0)
         torch.cuda.synchronize()
-        new_p, _ = bfs.bfs_push_step_plain(graph, front, d_p, 1)
-        err("bfs_push_step", new_k, new_p, True, "new_mask")
-        err("bfs_push_step", d_k, d_p, True, "distances")
+        new_p, _ = bfs.bfs_push_step_plain(graph, front, d_p, it)
+        err("bfs_push_step", new_k, new_p, True, f"{what} new_mask")
+        err("bfs_push_step", d_k, d_p, True, f"{what} distances")
     return errs
+
+
+def bfs_frontiers(torch, graph, source: int) -> list:
+    """[(frontier, distances, level)] before each level of a search from
+    ``source``, by the plain level-synchronous step (the frontiers every
+    BFS path of the port walks)."""
+    from gunrock_tpu_torch.algorithms import bfs
+    from gunrock_tpu_torch.utils.limits import UNREACHED
+
+    V = graph.n_vertices
+    dist = torch.full((V,), UNREACHED, dtype=torch.int32, device=graph.device)
+    dist[source] = 0
+    front = torch.zeros(V, dtype=torch.bool, device=graph.device)
+    front[source] = True
+    states = []
+    while bool(front.any()):
+        states.append((front, dist, len(states)))
+        front, dist, _ = bfs.bfs_step(graph, front, dist, None, len(states) - 1)
+    return states
 
 
 def compare_span_kernels(torch, layouts, keys) -> dict:
@@ -1267,19 +1305,27 @@ def compare_probe_kernels(torch, layouts, dev) -> dict:
                                      "chunk reaches is not 0")
             name = f"semiring_floor_{mode}"
             errs[name] = max(errs.get(name, 0.0), float((g - w).abs().max()))
-    xg = torch.randn((3, 5, 7), device=dev, generator=gen)
-    for axis in (0, 1, 2):
-        shape = [3, 5, 7]
-        shape[axis] = 4
-        idx = torch.randint(0, xg.shape[axis], shape, device=dev,
-                            generator=gen, dtype=torch.int32)
-        record(torch, errs, "gather", *both(
-            torch, probes.gather, probes.gather_plain, xg, idx, axis), True,
-            f"axis {axis}")
-    idx = torch.randint(0, xg.numel(), (999,), device=dev, generator=gen,
-                        dtype=torch.int32)
-    record(torch, errs, "gather", *both(
-        torch, probes.gather, probes.gather_plain, xg, idx, None), True, "flat")
+    # [3, 5, 7]: rows of 35 and 7 on axes 0 and 1 (one split an output);
+    # [3, 8, 12] and axis 2: whole groups of four in a row (one split, an
+    # int4 and a float4 a group); flat, also with idx one element off
+    # 16-byte alignment
+    for dims in ((3, 5, 7), (3, 8, 12)):
+        xg = torch.randn(dims, device=dev, generator=gen)
+        for axis in (0, 1, 2):
+            shape = list(dims)
+            shape[axis] = 4 if dims[axis] != 4 else 8
+            idx = torch.randint(0, xg.shape[axis], shape, device=dev,
+                                generator=gen, dtype=torch.int32)
+            record(torch, errs, "gather", *both(
+                torch, probes.gather, probes.gather_plain, xg, idx, axis), True,
+                f"{dims} axis {axis}")
+        for n in (999, 1000):
+            idx = torch.randint(0, xg.numel(), (n + 1,), device=dev,
+                                generator=gen, dtype=torch.int32)
+            for what, ix in (("flat", idx[:n]), ("flat, unaligned", idx[1:])):
+                record(torch, errs, "gather", *both(
+                    torch, probes.gather, probes.gather_plain, xg, ix, None),
+                    True, f"{dims} {what} {n}")
     xb = torch.rand((5, 3, 128), device=dev, generator=gen)
     meta = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, 5, 700).astype(np.int32)).to(dev)
@@ -1439,6 +1485,13 @@ def check_kernels(torch, graph, layouts):
     n_new = int(bfs.bfs_push_step_plain(graph, front, dist0.clone(), 1)[0].sum())
     b, by = bound_ms(V + 8 * q.numel() + 8 * n_edges_q + 4 * n_new + V)
     clone_ms = time_ms(torch, lambda: dist0.clone())
+    # one device operation a call: the cooperative launch, no memset
+    d = dist0.clone()
+    prof = device_profile(lambda: bfs.bfs_push_step(graph, front, d, 1, 0))
+    launched = {k: n for k, (_, n) in prof.get("top_us", {}).items()}
+    if list(launched.values()) != [1]:
+        raise AssertionError(f"bfs_push_step: one call ran {launched}, not "
+                             "one device kernel")
     rows["bfs_push_step"] = dict(
         route="cuda", source="gunrock_tpu_torch/csrc/bfs_push.cu",
         replaces="gunrock_tpu/algorithms/bfs.py:76",
@@ -1839,7 +1892,8 @@ def probe_kernel_rows(torch, graph, layouts, timed) -> dict:
     function, that call: the floor modes of the dense pass (P1) on the
     valued W=2048/C=256 pull layout, rtol 1e-5 per reached row block
     (positive sums, only the order differs) and exact 0 elsewhere; the
-    gather (P2) at every shape of the two gather probes, bit for bit; the
+    gather (P2) at every shape of the two gather probes and on its 64-bit
+    path (x of 2^31 + 16 elements), bit for bit; the
     block copy (P3) at the dma probe's 4x16 shape within rtol 1e-6 of the
     float64 sum, and at one x-window per chunk of the unit pull layout
     within rtol 1e-5. Adds each timed call to ``timed``."""
@@ -1890,6 +1944,16 @@ def probe_kernel_rows(torch, graph, layouts, timed) -> dict:
             xt, it = torch.from_numpy(xa).to(dev), torch.from_numpy(ia).to(dev)
             got, want = both(torch, probes.gather, probes.gather_plain, xt, it, axis)
             err = max(err, max_abs_err(torch, got, want, True, what=f"gather {v}"))
+    # the 64-bit path: x of 2^31 + 16 elements
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    xb = torch.randn((2, 2 ** 30 + 8), device=dev, generator=gen)
+    ib = torch.randint(0, xb.shape[1], (2, 64), device=dev, generator=gen,
+                       dtype=torch.int32)
+    ib[:, 0] = xb.shape[1] - 1
+    got, want = both(torch, probes.gather, probes.gather_plain, xb, ib, 1)
+    err = max(err, max_abs_err(torch, got, want, True, what="gather 64-bit"))
+    del xb, got, want
+    torch.cuda.empty_cache()
     xa, ia, axis = gather2.inputs("bench")
     xt, it = torch.from_numpy(xa).to(dev), torch.from_numpy(ia).to(dev)
     il = it.long()

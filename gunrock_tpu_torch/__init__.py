@@ -31,17 +31,25 @@ Layout (mirrors ``gunrock_tpu``):
 __version__ = "0.1.0"
 
 from gunrock_tpu_torch.graph import Graph, build_graph  # noqa: F401
+
+# the algorithm modules and the high-level entry points, as gunrock_tpu
+# re-exports them
+from gunrock_tpu_torch import algorithms  # noqa: F401
 from gunrock_tpu_torch.interop import (  # noqa: F401
+    bc_run,
     bfs,
     bfs_run,
     color_run,
+    geo_run,
     hits_run,
     kcore_run,
     mst_run,
     ppr_run,
     pr_run,
+    spgemm_run,
     spmv_run,
     sssp,
     sssp_run,
+    tc_run,
 )
 from gunrock_tpu_torch.ops.configs import Options  # noqa: F401

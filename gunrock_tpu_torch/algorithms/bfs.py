@@ -37,7 +37,7 @@ from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
 from gunrock_tpu_torch.utils.limits import UNREACHED
 from gunrock_tpu_torch.utils.timer import timed
 
-_BLOCKS_PER_SM = 8
+_BLOCKS_PER_SM = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gr_bfs_push_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P],
@@ -81,7 +81,8 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
     reference's fixed expansion size; the kernel expands exactly the
     frontier's out-edges, so it only keeps the signature.
 
-    CUDA source: ``csrc/bfs_push.cu``."""
+    CUDA source: ``csrc/bfs_push.cu`` (one cooperative launch that
+    spreads the frontier's out-edges over the whole grid)."""
     del edge_budget
     dev = graph.device
     V = graph.n_vertices
@@ -91,15 +92,19 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
         return bfs_push_step_plain(graph, front_mask, distances, iteration)
     if dev.type != "cuda":
         raise ValueError(f"no push kernel for device {dev}")
+    max_blocks = _BLOCKS_PER_SM * _build.sm_count(dev)
+    # fresh, so that it never aliases front_mask, which the kernel reads
+    # while it clears new_mask
     new_mask = torch.empty(V, dtype=torch.bool, device=dev)
-    scratch = torch.empty(V + 1, dtype=torch.int32, device=dev)
+    # block counts, queue, scan
+    scratch = torch.empty(2 * max_blocks + 2 * V, dtype=torch.int32, device=dev)
     lib = _build.load("bfs_push", _SIGNATURES)
     err = lib.gr_bfs_push_step(
         _build.ptr(front_mask), V, graph.n_edges,
         _build.ptr(graph.row_offsets),
         _build.ptr(graph.col_indices), _build.ptr(distances),
         _build.ptr(new_mask), int(iteration) + 1, _build.ptr(scratch),
-        _BLOCKS_PER_SM * _build.sm_count(dev), _build.stream(dev),
+        max_blocks, _build.stream(dev),
     )
     _build.check(err, "bfs_push_step")
     _build.LAUNCHES["bfs_push_step"] += 1

@@ -70,25 +70,6 @@ inline int finish(cudaStream_t s) {
   return err;
 }
 
-// Append `value` to `queue` for every lane of the calling warp with
-// `keep` set, with one atomicAdd on `count` per warp. All 32 lanes of the
-// warp must call it (the callers loop with a warp-uniform bound and no
-// lane returns early); the order of the appended values is unspecified.
-// `capacity` is the queue's length, for the checked build.
-__device__ __forceinline__ void warp_append(bool keep, int value, int* queue,
-                                            int* count, int capacity) {
-  constexpr unsigned kAll = 0xffffffffu;
-  const unsigned ballot = __ballot_sync(kAll, keep);
-  if (ballot == 0) return;
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(ballot) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(count, __popc(ballot));
-  base = __shfl_sync(kAll, base, leader);
-  const int at = base + __popc(ballot & ((1u << lane) - 1u));
-  if (keep && GR_IN_RANGE(at, capacity)) queue[at] = value;
-}
-
 // Float atomic min that is right for either sign: non-negative floats
 // order like signed ints, negative ones inversely to unsigned ints.
 // The sign bit (not v >= 0) picks the path so that -0.0 orders correctly.
@@ -97,19 +78,6 @@ __device__ __forceinline__ void atomic_min_float(float* addr, float v) {
     atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
   else
     atomicMax(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
-}
-
-// queue[0:*count] = the vertices v < n_vertices with front[v] set, in an
-// unspecified order; *count must be 0 on entry. The loop bound is
-// warp-uniform, so every lane reaches warp_append.
-__global__ void compact_frontier(const unsigned char* __restrict__ front,
-                                 int n_vertices, int* __restrict__ queue,
-                                 int* __restrict__ count) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int base = blockIdx.x * blockDim.x; base < n_vertices; base += stride) {
-    const int v = base + threadIdx.x;
-    warp_append(v < n_vertices && front[v], v, queue, count, n_vertices);
-  }
 }
 
 // The sum of `v` over the calling block (at most 1024 threads, a whole

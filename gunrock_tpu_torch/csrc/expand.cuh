@@ -1,5 +1,5 @@
 // The edge-balanced frontier expansion: Gunrock's load-balanced advance
-// in one cooperative launch (sssp_push.cu; bfs_push.cu can take it).
+// in one cooperative launch (sssp_push.cu, bfs_push.cu).
 // Apart from common.cuh because cooperative_groups.h doubles the compile
 // time of a small source.
 #pragma once

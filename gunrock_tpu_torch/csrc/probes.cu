@@ -12,11 +12,18 @@
 // the flat gather is outer = inner = 1. The TPU's one-hot two-level gather
 // (probe_gather.py's `twolevel`) works around a missing vector gather and
 // has no counterpart: Hopper gathers natively. Bound: bytes, idx and out
-// once each (8 B per element) plus x once. Design: one thread per output
-// element, neighbouring threads on neighbouring outputs, so idx and out
-// are read and written coalesced and the x reads land wherever idx says
-// (L1/L2 for the probes' shapes). idx must lie in [0, n_axis_x); the
-// checked build range-checks it.
+// once each (8 B per element) plus x once. Design: a thread takes four
+// consecutive outputs, so idx and out are read and written coalesced and
+// the four x reads (through the read-only path, __ldg) are in flight
+// together; they land wherever idx says (L1/L2 for the probes' shapes).
+// Where n_out and x's size are below 2^31 the index math is 32-bit and
+// splits o into (outer, a, inner_i) by a multiply-high with a
+// precomputed magic number (FastDiv, CUTLASS's FastDivmod), not by a
+// division; where the rows hold whole groups of four (inner == 1 and
+// n_axis_idx % 4 == 0, or inner % 4 == 0) a group shares one split, one
+// int4 load of idx and one float4 store. Above 2^31 a 64-bit kernel takes
+// one output a thread. idx must lie in [0, n_axis_x); the checked build
+// range-checks it.
 //
 // Block copy. Replaces benchmarks/probe_dma.py's kernel (:21-57, the
 // pallas_call at :66): the manual-DMA pattern a streaming semiring kernel
@@ -40,9 +47,74 @@
 
 namespace {
 
-__global__ void gather(const float* __restrict__ x, const int* __restrict__ idx,
-                       float* __restrict__ out, long n_out, long inner,
-                       long n_axis_idx, long n_axis_x) {
+// n / d for a fixed d > 0 and any n in [0, 2^31) without a division:
+// (umulhi(n, mul) >> shift) with mul = ceil(2^(31 + L) / d), shift = L - 1
+// and L = ceil(log2 d) (d == 1 passes n through). CUTLASS's FastDivmod.
+struct FastDiv {
+  unsigned mul;
+  int shift;
+  int d;
+  __device__ __forceinline__ int div(int n) const {
+    return d == 1 ? n : static_cast<int>(__umulhi(static_cast<unsigned>(n), mul) >> shift);
+  }
+};
+
+FastDiv fast_div(int d) {
+  FastDiv f{0u, 0, d};
+  if (d == 1) return f;
+  int L = 0;
+  while ((1ll << L) < d) ++L;
+  f.mul = static_cast<unsigned>(((1ull << (31 + L)) + d - 1) / d);
+  f.shift = L - 1;
+  return f;
+}
+
+// The 32-bit gather: thread g takes outputs 4g .. 4g + 3. kVec: every group
+// of four lies in one row (see above), idx and out are 16-byte aligned.
+template <bool kVec>
+__global__ void gather32(const float* __restrict__ x, const int* __restrict__ idx,
+                         float* __restrict__ out, int n_out, int inner,
+                         int n_axis_idx, int n_axis_x, FastDiv by_inner,
+                         FastDiv by_axis) {
+  const int n_groups = (n_out - 1) / 4 + 1;
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < n_groups;
+       g += gridDim.x * blockDim.x) {
+    const int o0 = 4 * g;
+    if (kVec) {
+      const int4 iv = *reinterpret_cast<const int4*>(idx + o0);
+      const int q = by_inner.div(o0);
+      const int inner_i = o0 - q * inner;
+      const int outer = by_axis.div(q);
+      const int base = outer * n_axis_x;
+      const int step = inner == 1 ? 0 : 1;  // inner_i + k along the row
+      const int i[4] = {iv.x, iv.y, iv.z, iv.w};
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = GR_IN_RANGE(i[k], n_axis_x)
+                   ? __ldg(x + (base + i[k]) * inner + inner_i + step * k)
+                   : 0.0f;
+      *reinterpret_cast<float4*>(out + o0) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k >= n_out - o0) break;
+        const int o = o0 + k;
+        const int i = idx[o];
+        if (!GR_IN_RANGE(i, n_axis_x)) continue;
+        const int q = by_inner.div(o);
+        const int outer = by_axis.div(q);
+        out[o] = __ldg(x + (outer * n_axis_x + i) * inner + (o - q * inner));
+      }
+    }
+  }
+}
+
+// The 64-bit gather, one output a thread, where n_out or x's size is
+// 2^31 or more.
+__global__ void gather64(const float* __restrict__ x, const int* __restrict__ idx,
+                         float* __restrict__ out, long n_out, long inner,
+                         long n_axis_idx, long n_axis_x) {
   for (long o = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
        o < n_out; o += static_cast<long>(gridDim.x) * blockDim.x) {
     const long i = idx[o];
@@ -164,17 +236,38 @@ __global__ void fill(const float* __restrict__ total, float* __restrict__ y,
 
 }  // namespace
 
-// out = take_along_axis(x, idx, axis): n_out elements (idx's size), inner
-// the product of the sizes after the axis, n_axis_idx / n_axis_x the
+// out = take_along_axis(x, idx, axis): n_out elements (idx's size, > 0),
+// inner the product of the sizes after the axis, n_axis_idx / n_axis_x the
 // axis's size in idx / x. The flat x[idx]: inner = 1, n_axis_idx = n_out,
-// n_axis_x = x's size.
+// n_axis_x = x's size. `blocks` of 256 threads, each thread four outputs
+// a round.
 extern "C" int gr_gather(int blocks, const void* x, const void* idx, void* out,
                          long n_out, long inner, long n_axis_idx,
                          long n_axis_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gather<<<blocks, gr::kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx),
-      static_cast<float*>(out), n_out, inner, n_axis_idx, n_axis_x);
+  const float* xp = static_cast<const float*>(x);
+  const int* ip = static_cast<const int*>(idx);
+  float* op = static_cast<float*>(out);
+  constexpr long kMax32 = 0x7fffffffL;
+  const long x_size = n_out / (inner * n_axis_idx) * n_axis_x * inner;
+  if (n_out > kMax32 || x_size > kMax32) {
+    gather64<<<blocks, gr::kThreads, 0, s>>>(xp, ip, op, n_out, inner,
+                                            n_axis_idx, n_axis_x);
+    return gr::finish(s);
+  }
+  const FastDiv by_inner = fast_div(static_cast<int>(inner));
+  const FastDiv by_axis = fast_div(static_cast<int>(n_axis_idx));
+  const bool rows4 = (inner == 1 && n_axis_idx % 4 == 0) || inner % 4 == 0;
+  if (rows4 && gr::aligned16(idx) && gr::aligned16(out))
+    gather32<true><<<blocks, gr::kThreads, 0, s>>>(
+        xp, ip, op, static_cast<int>(n_out), static_cast<int>(inner),
+        static_cast<int>(n_axis_idx), static_cast<int>(n_axis_x), by_inner,
+        by_axis);
+  else
+    gather32<false><<<blocks, gr::kThreads, 0, s>>>(
+        xp, ip, op, static_cast<int>(n_out), static_cast<int>(inner),
+        static_cast<int>(n_axis_idx), static_cast<int>(n_axis_x), by_inner,
+        by_axis);
   return gr::finish(s);
 }
 

@@ -138,7 +138,8 @@ def gather(x: torch.Tensor, idx: torch.Tensor, axis: int | None) -> torch.Tensor
     out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
     if idx.numel() == 0:
         return out
-    blocks = min(-(-idx.numel() // 256), 32 * _build.sm_count(dev))
+    # four outputs a thread, 256 threads a block
+    blocks = min(-(-idx.numel() // 1024), 32 * _build.sm_count(dev))
     lib = _build.load("probes", _SIGNATURES)
     err = lib.gr_gather(blocks, _build.ptr(x), _build.ptr(idx), _build.ptr(out),
                         idx.numel(), inner, n_axis_idx, n_axis_x,

@@ -102,6 +102,22 @@ improved mask, queued rows' offsets and distances, and each out-edge's
 column, weight and target distance, over the card's memory rate); then
 the case ``sssp_push_largest``, the step with the most out-edges, alone.
 
+``--bfs_push`` adds one line, ``bfs_push_passes``: every push step that
+the DO switch takes in eight DO-BFS searches (``bfs.run`` from the 8
+highest-degree vertices, as ``bench.py`` and ``chip_smoke.py``'s BFS path
+run them), each step's frontier and out-edges, the device time of
+replaying all of them (``device_ms_total``) split by kernel, and the
+on-path bound (``bound_ms_total``: each step's frontier mask and new mask
+over V, queued rows' offsets, each out-edge's column and target distance,
+and each new vertex's distance, over the card's memory rate); then the
+case ``bfs_push_largest``, the step with the most out-edges, alone; then
+the line ``bfs_crossover``: for every level of the eight searches, pushed
+or pulled, the device time of the push step and of the pull
+(``bfs._pull`` over the unit pull layout) on the same frontier and
+distances, beside the DO switch's ``edge_budget``. The steps update the
+distances in place, so every replayed call gets its own copy of the
+distances the search had before that level, made before the timing.
+
 ``--mst`` adds one line, ``mst_passes``: every min-cut pass (B7,
 ``bucketed_min_rank_cut``) of one ``mst.run`` with its real roots, each
 pass's cut slots and device time, their replayed total and the on-path
@@ -119,7 +135,8 @@ earlier tree's kernels.
 
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
        [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--b4_b6]
-       [--luby] [--b2_b9] [--geo] [--sssp_push] [--mst] [--device cuda]
+       [--luby] [--b2_b9] [--geo] [--sssp_push] [--bfs_push] [--mst]
+       [--device cuda]
 """
 
 from __future__ import annotations
@@ -562,6 +579,116 @@ def sssp_push_passes(graph, n: int) -> list:
     return rows
 
 
+def _bfs_push_bytes(V: int, n_front: int, n_out: int, n_new: int) -> int:
+    """What a BFS push step must move (``chip_smoke.py``'s bound): the
+    frontier mask and the new mask over V, each queued row's two offsets,
+    each out-edge's column and target distance, each new vertex's
+    distance."""
+    return V + V + 8 * n_front + 8 * n_out + 4 * n_new
+
+
+def bfs_levels(graph, sources) -> list:
+    """[(search, "push" | "pull", args)]: every level of the DO-BFS
+    searches ``bfs.run`` makes from ``sources``, recorded by wrapping the
+    push step and the pull; args are the step's positional arguments with
+    the distances copied before the step (both update them in place)."""
+    from gunrock_tpu_torch.algorithms import bfs
+
+    levels, search = [], [0]
+
+    def wrap(kind, step):
+        def record(*args):
+            levels.append((search[0], kind, (*args[:2], args[2].clone(),
+                                             *args[3:])))
+            return step(*args)
+        return record
+
+    push, pull = bfs.bfs_push_step, bfs._pull
+    bfs.bfs_push_step, bfs._pull = wrap("push", push), wrap("pull", pull)
+    try:
+        for search[0], src in enumerate(sources):
+            bfs.run(graph, src, warmup=False, device=graph.device)
+    finally:
+        bfs.bfs_push_step, bfs._pull = push, pull
+    return levels
+
+
+def _fresh(calls, uses: int):
+    """An iterator over ``uses`` copies of ``calls`` (argument tuples with
+    the distances third), each with its own distances, made now, before
+    any timing."""
+    return iter([[(*a[:2], a[2].clone(), *a[3:]) for a in calls]
+                 for _ in range(uses)])
+
+
+def bfs_push_passes(graph, n: int) -> list:
+    """The ``bfs_push_passes`` line, the ``bfs_push_largest`` case and the
+    ``bfs_crossover`` line (see the module docstring)."""
+    from gunrock_tpu_torch.algorithms import bfs
+    from gunrock_tpu_torch.ops.kernels.layout import pull_layout
+    from gunrock_tpu_torch.utils.roofline import bound_ms
+
+    dev, V = graph.device, graph.n_vertices
+    deg = graph.out_degrees()
+    kernel, pull = bfs.bfs_push_step, bfs._pull
+    sources = torch.argsort(deg, descending=True, stable=True)[:8].tolist()
+    levels = bfs_levels(graph, sources)
+    calls = [a for _, kind, a in levels if kind == "push"]
+    sizes = [torch.stack([front.sum(), torch.where(front, deg, 0).sum()]).tolist()
+             for _, front, _, _, _ in calls]
+    new = [int(bfs.bfs_push_step_plain(*a[:4])[0].sum())
+           for a in next(_fresh(calls, 1))]
+    # a profile replays 2n times a try, at most three tries; time_ms n + 1
+    pool = _fresh(calls, 7 * n + 1)
+
+    def replay():
+        return [kernel(*a) for a in next(pool)]
+
+    total, kernels = _profile(replay, n, dev)
+    row = {"probe": "pull", "case": "bfs_push_passes", "searches": len(sources),
+           "steps": len(calls), "frontier": [f for f, _ in sizes],
+           "out_edges": [e for _, e in sizes],
+           "out_edges_sum": sum(e for _, e in sizes), "new": new,
+           "ms_total": time_ms(dev, replay, n), "device_ms_total": total,
+           "kernels_us_total": kernels}
+    if dev.type == "cuda":
+        row["bound_ms_total"] = sum(
+            bound_ms(_bfs_push_bytes(V, f, e, k), 0, device=dev)[0]
+            for (f, e), k in zip(sizes, new))
+    row["device"] = device_label(dev)
+    rows = [row]
+    if calls:
+        i = max(range(len(calls)), key=lambda j: sizes[j][1])
+        n_front, n_out = sizes[i]
+        one = _fresh([calls[i]], 7 * n + 1)
+        rows.append(time_case("bfs_push_largest", (
+            lambda: kernel(*next(one)[0]),
+            _bfs_push_bytes(V, n_front, n_out, new[i]), 0, {},
+            {"frontier": n_front, "out_edges": n_out, "new": new[i]}), n, dev))
+
+    # the crossover: the push step and the pull on every level's inputs
+    layout = pull_layout(graph, unit=True)
+    reps = 3
+    per_level = []
+    for search, kind, a in levels:
+        front, dist, it = a[1], a[2], a[3]
+        push_args = _fresh([(graph, front, dist, it, 0)], 6 * reps)
+        pull_args = _fresh([(layout, front, dist, it)], 6 * reps)
+        n_front, n_out = torch.stack(
+            [front.sum(), torch.where(front, deg, 0).sum()]).tolist()
+        per_level.append({
+            "search": search, "level": it, "taken": kind,
+            "frontier": n_front, "out_edges": n_out,
+            "push_device_ms": _profile(
+                lambda: kernel(*next(push_args)[0]), reps, dev)[0],
+            "pull_device_ms": _profile(
+                lambda: pull(*next(pull_args)[0]), reps, dev)[0]})
+    rows.append({"probe": "pull", "case": "bfs_crossover",
+                 "edge_budget": calls[0][4] if calls else None,  # the switch's
+                 "levels": per_level, "device": device_label(dev)})
+    return rows
+
+
 def _cut_bytes(L) -> int:
     """What a min-cut pass must move: 12 B a real slot (row, col, rank),
     8 B a chunk, the roots and y (``chip_smoke.py``'s bound)."""
@@ -799,6 +926,9 @@ def main(argv=None) -> int:
                         "geo run and time them all")
     p.add_argument("--sssp_push", action="store_true",
                    help="time every push step of eight DO-SSSP searches")
+    p.add_argument("--bfs_push", action="store_true",
+                   help="time every push step of eight DO-BFS searches, and "
+                        "the push and the pull on every level")
     p.add_argument("--mst", action="store_true",
                    help="time every min-cut pass of one MST run, and B7's "
                         "cases")
@@ -830,6 +960,9 @@ def main(argv=None) -> int:
         print(json.dumps(geo_passes(graph, 3)), flush=True)
     if ns.sssp_push:
         for row in sssp_push_passes(graph, ns.num_runs):
+            print(json.dumps(row), flush=True)
+    if ns.bfs_push:
+        for row in bfs_push_passes(graph, ns.num_runs):
             print(json.dumps(row), flush=True)
     if ns.mst:
         for row in mst_passes(graph, ns.num_runs):
