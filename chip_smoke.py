@@ -84,18 +84,35 @@ Phases, each raising on failure:
       the gathers (checked against numpy) and their rates, the block copy
       at the dma probe's case and at one window per chunk, with its rate
       beside ``x.view(-1, W)[meta].sum()``; each time comes with the
-      device time of a ``torch.profiler`` trace (``utils/trace_stats``).
+      device time of a ``torch.profiler`` trace (``utils/trace_stats``);
+   f. the operator layer (``ops/``, ``framework/frontier.py``):
+      ``advance_semiring`` (plus_times, min_plus, max_times; forward and
+      backward; every vertex active and a mid-search BFS level) by the
+      bucketed kernels (B3; B1 after B2) against the plain segmented
+      path, min and max bit for bit with the same infinities, plus_times
+      by ``sum_check`` and, on a unit-weight copy with integer x, exactly
+      equal; ``advance`` and ``neighbor_reduce`` with Python lambdas
+      exactly against numpy; ``filter_queue``, ``uniquify``,
+      ``queue_to_mask`` and ``mask_to_queue`` on a 1M-entry queue exactly
+      against numpy; a queue BFS and a Bellman-Ford SSSP written on the
+      operators against ``bfs.run``/``sssp.run`` (equal; rtol 1e-5), and
+      ``bfs.run`` through the BFS enactor against the DO run.
 4. CLIs: bfs (twice; the first also with ``--export_metrics``, whose JSON
    is checked: the reference's keys, the card in ``gpuinfo``), sssp, pr,
    hits, spmv, color, mst, kcore, ppr, bc (one source, all sources), tc,
    spgemm (esc, dense) and geo with ``--validate``, all started together.
+5. the regression battery (``examples/regression.py``) on the card: one
+   process per vendored graph family, all seven started together, each
+   running its CLI list with ``--validate`` and checking the invariants of
+   ``datasets/expected.json``.
 
 Output: the ``nvidia-smi`` name/power-limit line first, a bench line with
 bench.py's keys, a ``{"semiring_family": ...}`` line, a
 ``{"frontier_family": ...}`` line, an ``{"analysis_family": ...}`` line
 (each with roofline columns from ``utils/roofline``), the probes' lines
-and a ``{"measurement": ...}`` line, an ``{"export": ...}`` line, the
-seconds of each phase, then the kernel table as one JSON line, and last
+and a ``{"measurement": ...}`` line, an ``{"operators": ...}`` line, an
+``{"export": ...}`` line, a ``{"regression_battery": ...}`` line with
+each family's seconds, the seconds of each phase, then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without a CUDA
 device or without the package beside it.
 
@@ -2509,6 +2526,329 @@ def analysis_path(torch, graph, order) -> dict:
     return out
 
 
+def _reduceat(values, offsets, ufunc, identity):
+    """numpy oracle of a sorted-segment reduction: ``ufunc`` over each
+    segment of ``values`` split by ``offsets``, ``identity`` where empty."""
+    import numpy as np
+
+    # one identity past the end, so that every start indexes the array
+    padded = np.append(values, np.asarray(identity, values.dtype))
+    out = ufunc.reduceat(padded, offsets[:-1].astype(np.int64))
+    out[np.diff(offsets) == 0] = identity  # reduceat's empty segments
+    return out
+
+
+def queue_bfs(graph, source: int):
+    """BFS as a Gunrock user writes it on the port's operators: a
+    QueueFrontier, ``advance`` to the touched vertices, the touched
+    compacted into a queue, ``filter_queue`` to the unvisited and
+    ``uniquify``; the loop reads the device once a level (``is_empty``).
+    Returns (distances, depth)."""
+    import torch
+
+    from gunrock_tpu_torch.framework import QueueFrontier, mask_to_queue
+    from gunrock_tpu_torch.ops import advance, filter_queue, uniquify
+    from gunrock_tpu_torch.utils.limits import UNREACHED
+
+    V, dev = graph.n_vertices, graph.device
+    dist = torch.full((V,), UNREACHED, dtype=torch.int32, device=dev)
+    dist[source] = 0
+    q = QueueFrontier.from_list([source], V, device=dev)
+    depth = 0
+    while not bool(q.is_empty()):
+        _, touched = advance(graph, q.to_mask(V), lambda s, d, e, w: w, "min")
+        data, count = mask_to_queue(touched, V)
+        data, count = filter_queue(data, count,
+                                   lambda x: dist[x.long()] == UNREACHED)
+        q = QueueFrontier(*uniquify(data, count, V))
+        depth += 1
+        dist = torch.where(q.to_mask(V), depth, dist)
+    return dist, depth
+
+
+def bellman_ford(graph, source: int):
+    """SSSP as a Gunrock user writes it: ``advance_semiring`` (min_plus,
+    the frontier, the bucketed kernels) relaxes the frontier's out-edges,
+    ``filter_mask`` keeps the improved vertices. Returns (distances,
+    rounds)."""
+    import torch
+
+    from gunrock_tpu_torch.ops import LoadBalance, filter_mask
+    from gunrock_tpu_torch.ops.advance import advance_semiring
+
+    V, dev = graph.n_vertices, graph.device
+    dist = torch.full((V,), torch.inf, device=dev)
+    dist[source] = 0.0
+    front = torch.zeros(V, dtype=torch.bool, device=dev)
+    front[source] = True
+    rounds = 0
+    while bool(front.any()):
+        relaxed = advance_semiring(graph, dist, "min_plus", front,
+                                   load_balance=LoadBalance.PALLAS_MERGE_PATH)
+        front = filter_mask(relaxed < torch.inf, relaxed < dist)
+        dist = torch.minimum(dist, relaxed)
+        rounds += 1
+    return dist, rounds
+
+
+def operators_path(torch, graph) -> dict:
+    """Phase 3f, the operator layer on the same graph (``ops/``,
+    ``framework/frontier.py``): ``advance_semiring`` by both strategies
+    (the bucketed kernels B3, B1 after B2, against the plain segmented
+    path), ``advance`` and ``neighbor_reduce`` with Python lambdas, the
+    queue operators on a 1M-entry queue, and two algorithms written on the
+    operators beside the tuned runs. Returns the summary line's dict."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import bfs, sssp
+    from gunrock_tpu_torch.framework import mask_to_queue, queue_to_mask
+    from gunrock_tpu_torch.graph import Graph
+    from gunrock_tpu_torch.ops import (
+        AdvanceDirection,
+        LoadBalance,
+        UniquifyAlgorithm,
+        advance,
+        filter_queue,
+        neighbor_reduce,
+        uniquify,
+    )
+    from gunrock_tpu_torch.ops.advance import advance_semiring
+    from gunrock_tpu_torch.ops.configs import Options
+    from gunrock_tpu_torch.utils.limits import UNREACHED
+
+    dev = graph.device
+    V, E = graph.n_vertices, graph.n_edges
+    h = graph.host
+    deg = np.diff(h["row_offsets"])
+    top = int(np.argmax(deg))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+
+    # a. advance_semiring, both strategies, on the valued graph (and the
+    # plus_times sums on a unit-weight copy with integer x, where the plain
+    # path's prefix sums are exact too)
+    states = bfs_frontiers(torch, graph, top)
+    level, level_dist, level_it = states[len(states) // 2]
+    ones = np.ones(E, np.float32)
+    unit = Graph.from_arrays({**h, "values": ones, "csc_values": ones}, V,
+                             graph.properties, dev)
+    fwd, bwd = AdvanceDirection.FORWARD, AdvanceDirection.BACKWARD
+    xs = {
+        "plus_times": torch.rand(V, generator=gen, device=dev),
+        "min_plus": torch.where(
+            torch.rand(V, generator=gen, device=dev) < 0.05, torch.inf,
+            torch.rand(V, generator=gen, device=dev) * 8),
+        "max_times": torch.rand(V, generator=gen, device=dev) * 2 - 1,
+        "plus_times_int": torch.randint(0, 4, (V,), generator=gen,
+                                        device=dev).float(),
+    }
+    cases = {}
+    for name, x in xs.items():
+        semiring = name.removesuffix("_int")
+        g = unit if name.endswith("_int") else graph
+        for d in (fwd, bwd):
+            for fname, front in (("all", None), ("level", level)):
+                def call(lb, g=g, x=x, semiring=semiring, front=front, d=d):
+                    return advance_semiring(g, x, semiring, front, d, lb)
+
+                what = f"advance_semiring {name} {d.value} {fname}"
+                got = call(LoadBalance.PALLAS_MERGE_PATH)
+                torch.cuda.synchronize()
+                plain = call(LoadBalance.XLA_SEGMENT)
+                row_t = {fwd: (g.csc_dst, g.csc_rows, g.csc_values),
+                         bwd: (g.edge_src, g.col_indices, g.values)}[d]
+                xa = x if front is None else torch.where(front, x, 0.0)
+                if semiring == "plus_times":
+                    terms = row_t[2].double() * xa[row_t[1].long()].double()
+                    if name.endswith("_int"):  # both exact
+                        err = sum_check(torch, what, got, row_t[0].long(),
+                                        terms, plain=plain)
+                        max_abs_err(torch, got, plain, True, what=what)
+                    else:
+                        err = sum_check(torch, what, got, row_t[0].long(),
+                                        terms)
+                        exact = torch.zeros(V, dtype=torch.float64,
+                                            device=dev).index_add_(
+                            0, row_t[0].long(), terms)
+                        # the plain path's cumsum difference: reported, its
+                        # error follows the total (ulp of sum |terms|)
+                        ulp = float(terms.abs().sum()) * F32_ROUNDOFF
+                        cases[what + " plain_err_total_ulps"] = float(
+                            (plain.double() - exact).abs().max()) / ulp
+                else:
+                    err = max_abs_err(torch, got, plain, True, what=what)
+                t = {}
+                for key, lb in (("pallas", LoadBalance.PALLAS_MERGE_PATH),
+                                ("plain", LoadBalance.XLA_SEGMENT)):
+                    t[f"{key}_ms"] = time_ms(torch, lambda: call(lb))
+                    # device busy time over 20 calls (one call's trace can
+                    # miss its kernels), per call
+                    prof = device_profile(lambda: [call(lb) for _ in range(20)])
+                    t[f"{key}_device_ms"] = prof["busy_us"] / 20e3 \
+                        if "busy_us" in prof else "not measured"
+                cases[what] = {"max_abs_err": err, **t}
+    out["advance_semiring"] = cases
+    out["level"] = {"iteration": level_it, "size": int(level.sum()),
+                    "out_edges": int(deg[level.cpu().numpy()].sum())}
+
+    # b. advance and neighbor_reduce with Python lambdas, exact against
+    # numpy (the same float32 op; sums are counts of ones)
+    f_np = level.cpu().numpy()
+    dist_f = torch.where(level_dist == UNREACHED, torch.inf,
+                         level_dist.float())
+    df_np = dist_f.cpu().numpy()
+    checks = {}
+
+    def exact(what, got, want):
+        got = got.cpu().numpy()
+        if not np.array_equal(got, want):
+            bad = np.flatnonzero(got != want)[:5]
+            raise AssertionError(f"{what}: differs from numpy at {bad}: "
+                                 f"{got[bad]} vs {want[bad]}")
+
+    red, touched = advance(graph, level, lambda s, d, e, w: dist_f[s.long()] + w,
+                           "min", fwd)
+    act = f_np[h["csc_rows"]]
+    msg = np.where(act, df_np[h["csc_rows"]] + h["csc_values"], np.inf)
+    exact("advance forward min", red,
+          _reduceat(msg.astype(np.float32), h["csc_offsets"], np.minimum,
+                    np.inf))
+    exact("advance forward touched", touched,
+          np.bincount(h["csc_dst"][act], minlength=V) > 0)
+    checks["forward_min_ms"] = time_ms(torch, lambda: advance(
+        graph, level, lambda s, d, e, w: dist_f[s.long()] + w, "min", fwd))
+
+    red, touched = advance(graph, level, lambda s, d, e, w: torch.ones_like(w),
+                           "sum", bwd)
+    act = f_np[h["col_indices"]]
+    exact("advance backward sum of ones", red,
+          np.bincount(h["edge_src"][act], minlength=V).astype(np.float32))
+    exact("advance backward touched", touched,
+          np.bincount(h["edge_src"][act], minlength=V) > 0)
+    checks["backward_sum_ms"] = time_ms(torch, lambda: advance(
+        graph, level, lambda s, d, e, w: torch.ones_like(w), "sum", bwd))
+
+    emask = torch.rand(E, generator=gen, device=dev) < 0.1
+    red, touched = advance(graph, emask, lambda s, d, e, w: w, "max", fwd,
+                           edge_frontier=True)
+    act = emask.cpu().numpy()[h["csc_edge_perm"]]
+    exact("advance edge frontier max", red,
+          _reduceat(np.where(act, h["csc_values"], -np.inf).astype(np.float32),
+                    h["csc_offsets"], np.maximum, -np.inf))
+    checks["edge_frontier_max_ms"] = time_ms(torch, lambda: advance(
+        graph, emask, lambda s, d, e, w: w, "max", fwd, edge_frontier=True))
+
+    for direction, offs, vals in (("out", h["row_offsets"], h["values"]),
+                                  ("in", h["csc_offsets"], h["csc_values"])):
+        for reduce, ufunc, ident in (("min", np.minimum, np.inf),
+                                     ("max", np.maximum, -np.inf)):
+            exact(f"neighbor_reduce {reduce} {direction}",
+                  neighbor_reduce(graph, lambda s, d, e, w: w, reduce,
+                                  direction),
+                  _reduceat(vals, offs, ufunc, ident).astype(np.float32))
+        exact(f"neighbor_reduce sum of ones {direction}",
+              neighbor_reduce(graph, lambda s, d, e, w: torch.ones_like(w),
+                              "sum", direction),
+              np.diff(offs).astype(np.float32))
+        checks[f"neighbor_reduce_sum_{direction}_ms"] = time_ms(
+            torch, lambda: neighbor_reduce(
+                graph, lambda s, d, e, w: torch.ones_like(w), "sum", direction))
+    out["advance"] = checks
+
+    # c. the queue operators on a 1M-entry queue drawn with repeats from V
+    cap, count = 1 << 20, 1_000_000
+    rng = np.random.default_rng(SEED)
+    q_np = rng.integers(0, V, cap).astype(np.int32)
+    q_np[rng.random(cap) < 0.01] = -1  # invalid entries inside the live part
+    q_np[count:] = -1
+    data = torch.from_numpy(q_np).to(dev)
+    cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+    live = q_np[:count][q_np[:count] >= 0]
+
+    def queue_is(what, got, want):
+        d, c = got
+        if int(c) != want.size:
+            raise AssertionError(f"{what}: count {int(c)}, numpy {want.size}")
+        exact(what, d, np.concatenate(
+            [want, np.full(cap - want.size, -1, np.int32)]).astype(np.int32))
+
+    qt = {}
+    pred = lambda x: x % 3 != 0  # noqa: E731
+    queue_is("filter_queue compact", filter_queue(data, cnt, pred),
+             live[live % 3 != 0])
+    d, c = filter_queue(data, cnt, pred, compact=False)
+    keep = (np.arange(cap) < count) & (q_np >= 0) & (q_np % 3 != 0)
+    exact("filter_queue bypass", d, np.where(keep, q_np, -1))
+    if int(c) != count:
+        raise AssertionError("filter_queue bypass: count changed")
+    _, first = np.unique(live, return_index=True)
+    queue_is("uniquify scatter", uniquify(data, cnt, V), live[np.sort(first)])
+    queue_is("uniquify unique", uniquify(data, cnt, V,
+                                         UniquifyAlgorithm.UNIQUE),
+             np.unique(live))
+    mask_np = np.zeros(V, bool)
+    mask_np[live] = True
+    mask = queue_to_mask(data, cnt, V)
+    exact("queue_to_mask", mask, mask_np)
+    queue_is("mask_to_queue", mask_to_queue(mask, cap),
+             np.flatnonzero(mask_np).astype(np.int32))
+    for key, fn in (
+            ("filter_queue_ms", lambda: filter_queue(data, cnt, pred)),
+            ("uniquify_scatter_ms", lambda: uniquify(data, cnt, V)),
+            ("uniquify_unique_ms", lambda: uniquify(
+                data, cnt, V, UniquifyAlgorithm.UNIQUE)),
+            ("queue_to_mask_ms", lambda: queue_to_mask(data, cnt, V)),
+            ("mask_to_queue_ms", lambda: mask_to_queue(mask, cap))):
+        qt[key] = time_ms(torch, fn)
+    out["queue"] = {"capacity": cap, "count": count, "unique": int(first.size),
+                    **qt}
+
+    # d. two algorithms on the operators beside the tuned runs (reported,
+    # not claimed), and bfs.run through the BFS enactor
+    def mteps(dist, ms):
+        reached = dist.cpu().numpy() != UNREACHED
+        return int(deg[reached].sum()) / ms / 1e3
+
+    tuned = bfs.run(graph, top, device=dev)
+    qd, q_depth = queue_bfs(graph, top)
+    if not torch.equal(qd, tuned.distances):
+        raise AssertionError("queue BFS on the operators: distances differ "
+                             "from bfs.run's")
+    q_ms = time_ms(torch, lambda: queue_bfs(graph, top), n=3)
+    fw = bfs.run(graph, top, options=Options(advance_direction=fwd),
+                 device=dev)
+    if not (torch.equal(fw.distances, tuned.distances)
+            and torch.equal(fw.predecessors, tuned.predecessors)
+            and fw.search_depth == tuned.search_depth):
+        raise AssertionError("bfs.run FORWARD (BfsEnactor): distances, "
+                             "predecessors or depth differ from the DO run's")
+    s_tuned = sssp.run(graph, top, device=dev)
+    bd, bf_rounds = bellman_ford(graph, top)
+    err = close("Bellman-Ford on advance_semiring", bd.cpu().numpy(),
+                s_tuned.distances.cpu().numpy(), 1e-5, 1e-6)
+    bf_ms = time_ms(torch, lambda: bellman_ford(graph, top), n=3)
+    sd = torch.where(torch.isinf(s_tuned.distances), UNREACHED, 0)
+    out["algorithms"] = {
+        "source": top,
+        "queue_bfs": {"ms": q_ms, "depth": q_depth,
+                      "mteps": mteps(qd, q_ms)},
+        "bfs_run_do": {"ms": tuned.elapsed_ms, "depth": tuned.search_depth,
+                       "mteps": mteps(tuned.distances, tuned.elapsed_ms)},
+        "bfs_run_forward_enactor": {"ms": fw.elapsed_ms,
+                                    "mteps": mteps(fw.distances, fw.elapsed_ms)},
+        "bellman_ford": {"ms": bf_ms, "rounds": bf_rounds,
+                         "mteps": mteps(sd, bf_ms), "max_abs_err": err},
+        "sssp_run_do": {"ms": s_tuned.elapsed_ms,
+                        "depth": s_tuned.search_depth,
+                        "mteps": mteps(sd, s_tuned.elapsed_ms)},
+    }
+    out["profile"] = {
+        "queue_bfs": device_profile(lambda: queue_bfs(graph, top)),
+        "bellman_ford": device_profile(lambda: bellman_ford(graph, top)),
+    }
+    return out
+
+
 def roof(graph, algo: str, ms: float, edges_visited: int = 0, **extra) -> dict:
     """The roofline columns of one run (``utils/roofline``): modelled
     bytes, their rate and its share of the card's memory rate, with the
@@ -2760,6 +3100,22 @@ def main() -> int:
     print(json.dumps({"measurement": measure}))
     seconds["measurement_path"] = time.perf_counter() - t0
 
+    operator_kernels = ("chunk_activity", "bucketed_semiring_spmv",
+                        "bucketed_semiring_spmv_sparse")
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    operators = operators_path(torch, graph)
+    launches_operators = dict(_build.LAUNCHES)
+    missing = [k for k in operator_kernels if launches_operators.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"operator path launched no {missing}: "
+                             f"{launches_operators}")
+    operators["launches"] = launches_operators
+    operators["name_power_limit"] = smi
+    operators["sum_check_limit_share"] = LIMIT_SHARE["max"]
+    print(json.dumps({"operators": operators}))
+    seconds["operators_path"] = time.perf_counter() - t0
+
     # 4. the CLIs, validated against the CPU oracles (chesapeake is
     # symmetric, so the hits CLI takes the symmetric dense pass)
     t0 = time.perf_counter()
@@ -2789,12 +3145,30 @@ def main() -> int:
                                              name)}))
     export_dir.cleanup()
     seconds["clis"] = time.perf_counter() - t0
+
+    # 5. the regression battery on the card: one process per family, all
+    # started together, each running its CLI list and invariants
+    from gunrock_tpu_torch.examples.regression import FAMILIES
+
+    t0 = time.perf_counter()
+    battery = {}
+    for line in run_clis([["gunrock_tpu_torch.examples.regression",
+                           "--families", fam] for fam in FAMILIES]):
+        res = json.loads(line)["regression"]
+        if res["failures"] or res["device"] != "cuda":
+            raise AssertionError(f"regression battery: {res}")
+        battery.update(res["seconds"])
+    print(json.dumps({"regression_battery": {
+        "families": len(battery), "seconds": battery,
+        "name_power_limit": smi}}))
+    seconds["regression"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"seconds": seconds}))
 
     table = [{"name": k, "launches": launches_bfs.get(k, 0)
               + launches_family.get(k, 0) + launches_frontier.get(k, 0)
-              + launches_analysis.get(k, 0) + launches_measure.get(k, 0), **r}
+              + launches_analysis.get(k, 0) + launches_measure.get(k, 0)
+              + launches_operators.get(k, 0), **r}
              for k, r in rows.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -12,16 +12,20 @@ Layout (mirrors ``gunrock_tpu``):
 
 - ``formats``     — host CSR/COO/CSC containers and conversions (numpy)
 - ``graph``       — the device Graph, ``build_graph``, ``degree_sort``
-- ``io``          — Matrix Market / binary CSR loading, generators, CLI flags
+- ``io``          — Matrix Market / binary CSR loading, generators, sample
+                    graphs, CLI flags
 - ``ops.kernels`` — the bucketed layout and the CUDA kernels with their
                     plain versions
-- ``ops``         — sorted-segment sums, sorts, operator options
-- ``framework``   — the Enactor/Problem loop, workload counters
+- ``ops``         — the operators (advance, filter, uniquify,
+                    neighbor_reduce, parallel_for, batch), sorted-segment
+                    sums, sorts, searches, random fills, operator options
+- ``framework``   — frontier containers, the Enactor/Problem loop,
+                    workload counters
 - ``algorithms``  — BFS (direction-optimizing, multi-source), SSSP,
                     PageRank, HITS, SpMV, graph coloring, minimum spanning
                     tree, k-core, personalized PageRank, betweenness
                     centrality, SpGEMM, triangle counting, geolocation
-- ``examples``    — the CLIs and their CPU oracles
+- ``examples``    — the CLIs, their CPU oracles and the regression battery
 - ``device``      — the device rule and the card's properties and peaks
 - ``utils``       — comparison, timers, roofline, profiler traces and
                     their per-op stats, the metrics JSON export
@@ -31,6 +35,7 @@ Layout (mirrors ``gunrock_tpu``):
 __version__ = "0.1.0"
 
 from gunrock_tpu_torch.graph import Graph, build_graph  # noqa: F401
+from gunrock_tpu_torch.framework.frontier import DenseFrontier, QueueFrontier  # noqa: F401
 
 # the algorithm modules and the high-level entry points, as gunrock_tpu
 # re-exports them

@@ -40,6 +40,11 @@ from gunrock_tpu_torch.utils.timer import timed
 
 
 @dataclasses.dataclass
+class Param:
+    single_source: int
+
+
+@dataclasses.dataclass
 class Result:
     bc_values: torch.Tensor  # float32[V] (scaled by 0.5, reference parity)
     elapsed_ms: float

@@ -5,8 +5,10 @@ direction-optimizing BFS (:func:`bfs_kernel_do`): per level it takes the
 push step (:func:`bfs_push_step`, a CUDA kernel) for small frontiers and
 the frontier-sparse semiring pull (``ops/kernels/semiring.py``) over the
 unit pull layout otherwise. :func:`msbfs_kernel` runs K searches at once
-through the bucketed SpMM. :func:`bfs_kernel` is the plain-tensor
-level-synchronous search that ``Options()`` (FORWARD) selects.
+through the bucketed SpMM. The other options (``Options()``, FORWARD)
+run the level-synchronous :func:`bfs_step` in plain tensor ops through
+``BfsProblem``/``BfsEnactor``, the reference's enactor pattern, as the
+JAX package does; :func:`bfs_kernel` is the same search as a bare loop.
 
 The JAX package runs each search as one compiled ``while_loop``; here the
 loop is Python, and each level reads one two-element tensor back to the
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 from gunrock_tpu_torch.device import DEFAULT
+from gunrock_tpu_torch.framework.enactor import Enactor
+from gunrock_tpu_torch.framework.problem import Problem
 from gunrock_tpu_torch.graph import Graph
 from gunrock_tpu_torch.ops.configs import (
     AdvanceDirection,
@@ -42,6 +46,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gr_bfs_push_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P],
 }
+
+
+@dataclasses.dataclass
+class Param:
+    single_source: int
 
 
 @dataclasses.dataclass
@@ -241,6 +250,45 @@ def bfs_kernel(graph: Graph, single_source: int,
     return dist, pred, it
 
 
+class BfsProblem(Problem):
+    def __init__(self, graph: Graph, param: Param):
+        super().__init__(graph)
+        self.param = param
+
+    def reset(self):
+        V, dev = self.graph.n_vertices, self.graph.device
+        src = self.param.single_source
+        dist = torch.full((V,), UNREACHED, dtype=torch.int32, device=dev)
+        dist[src] = 0
+        front = torch.zeros(V, dtype=torch.bool, device=dev)
+        front[src] = True
+        return {
+            "distances": dist,
+            "predecessors": torch.full((V,), -1, dtype=torch.int32,
+                                       device=dev),
+            "frontier": front,
+        }
+
+
+class BfsEnactor(Enactor):
+    """Reference enactor pattern (bfs.hxx:75-147): prepare a single-vertex
+    frontier, loop advance (with its implicit filter) until it is empty."""
+
+    def prepare_frontier(self):
+        return self.problem.reset()
+
+    def loop(self, state):
+        front, dist, pred = bfs_step(
+            self.problem.graph,
+            state["frontier"],
+            state["distances"],
+            state["predecessors"],
+            state["iteration"],
+        )
+        return {**state, "frontier": front, "distances": dist,
+                "predecessors": pred}
+
+
 def run(
     graph: Graph,
     single_source: int,
@@ -251,7 +299,8 @@ def run(
     """Role of reference ``bfs::run``: BFS from ``single_source`` on
     ``device`` (the graph moves there if it is elsewhere). The default
     options take the direction-optimizing path over the bucketed kernels;
-    predecessors then come from one post-pass."""
+    predecessors then come from one post-pass. Other options run
+    ``BfsEnactor``, which keeps predecessors as it goes."""
     graph = graph.to(device)
     if not 0 <= int(single_source) < graph.n_vertices:
         raise ValueError(
@@ -260,22 +309,20 @@ def run(
     single_source = int(single_source)
     if options is None:
         options = default_options()
-    if options.advance_direction == AdvanceDirection.OPTIMIZED:
-        layout = None
-        if options.load_balance == LoadBalance.PALLAS_MERGE_PATH:
-            layout = pull_layout(graph, unit=True)
-
-        def search():
-            dist, depth = bfs_kernel_do(graph, single_source, layout=layout)
-            return dist, None, depth
-    else:
-
-        def search():
-            return bfs_kernel(graph, single_source)
-
-    (dist, pred, depth), elapsed_ms = timed(graph.device, search, warmup)
-    if pred is None:
-        pred = _predecessors_from_distances(graph, dist)
+    if options.advance_direction != AdvanceDirection.OPTIMIZED:
+        enactor = BfsEnactor(BfsProblem(graph, Param(single_source)))
+        state, elapsed_ms = enactor.enact(warmup=warmup)
+        return Result(distances=state["distances"],
+                      predecessors=state["predecessors"],
+                      search_depth=int(state["iteration"]),
+                      elapsed_ms=elapsed_ms)
+    layout = None
+    if options.load_balance == LoadBalance.PALLAS_MERGE_PATH:
+        layout = pull_layout(graph, unit=True)
+    (dist, depth), elapsed_ms = timed(
+        graph.device,
+        lambda: bfs_kernel_do(graph, single_source, layout=layout), warmup)
+    pred = _predecessors_from_distances(graph, dist)
     return Result(distances=dist, predecessors=pred, search_depth=depth,
                   elapsed_ms=elapsed_ms)
 

@@ -54,6 +54,12 @@ INVALID_COLOR = -1
 
 
 @dataclasses.dataclass
+class Param:
+    seed: int = 0
+    ordering: str = "random"  # "random" (reference parity) | "degree" (JP-LDF)
+
+
+@dataclasses.dataclass
 class Result:
     colors: torch.Tensor  # int32[V]
     iterations: int

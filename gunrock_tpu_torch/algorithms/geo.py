@@ -42,7 +42,14 @@ from gunrock_tpu_torch.ops.kernels.geo_step import (
 from gunrock_tpu_torch.ops.kernels.layout import push_layout
 from gunrock_tpu_torch.utils.timer import timed
 
-__all__ = ["Result", "geo_kernel", "haversine", "midpoint", "run"]
+__all__ = ["Param", "Result", "geo_kernel", "haversine", "midpoint", "run"]
+
+
+@dataclasses.dataclass
+class Param:
+    total_iterations: int = 10
+    spatial_iterations: int = 1000
+
 
 @dataclasses.dataclass
 class Result:

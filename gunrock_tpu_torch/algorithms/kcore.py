@@ -35,6 +35,11 @@ _BIG_DEG = 2**30
 
 
 @dataclasses.dataclass
+class Param:
+    pass
+
+
+@dataclasses.dataclass
 class Result:
     k_cores: torch.Tensor  # int32[V]
     degeneracy: int

@@ -55,6 +55,11 @@ _WMAX = float(np.finfo(np.float32).max)
 
 
 @dataclasses.dataclass
+class Param:
+    require_connected: bool = False
+
+
+@dataclasses.dataclass
 class Result:
     mst_weight: float
     mst_edges: torch.Tensor  # bool[E] over CSR edge ids (chosen edges)
@@ -257,6 +262,18 @@ def _mst_contract(graph: Graph):
     n_comp = int((roots == torch.arange(V, dtype=torch.int32,
                                         device=dev)).sum())
     return w_acc, in_mst[:-1], n_comp, rounds, jumps
+
+
+def mst_kernel(graph: Graph, max_rounds: int | None = None):
+    """Pure Boruvka over SYMMETRIC (two-copy) edge storage: the ``src <
+    dst`` cut test selects one copy of each undirected edge. A directed
+    graph must go through :func:`run`, which canonicalizes the edge set
+    first (here every (u, v) edge with u > v would be dropped). Returns
+    (mst_weight f32 0-d tensor, mst_edge_mask bool[E], n_components)."""
+    del max_rounds  # as in JAX: the loop ends on a round that adds no edge
+    weight, in_mst, n_comp, _, _ = _mst_kernel_edges(
+        graph.edge_src, graph.col_indices, graph.values, graph.n_vertices)
+    return weight, in_mst, n_comp
 
 
 def _mst_kernel_edges(src, dst, w, V: int):

@@ -37,6 +37,13 @@ from gunrock_tpu_torch.utils.timer import timed
 
 
 @dataclasses.dataclass
+class Param:
+    seed: int
+    alpha: float = 0.15
+    epsilon: float = 1e-6
+
+
+@dataclasses.dataclass
 class Result:
     p: torch.Tensor  # float32[V]
     iterations: int

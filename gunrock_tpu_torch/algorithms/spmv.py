@@ -23,6 +23,11 @@ from gunrock_tpu_torch.utils.timer import timed
 
 
 @dataclasses.dataclass
+class Param:
+    pass
+
+
+@dataclasses.dataclass
 class Result:
     y: torch.Tensor  # float32[V]
     elapsed_ms: float

@@ -167,13 +167,21 @@ def sssp_kernel_do(
     edge_budget: int | None = None,
     layout=None,
     layout_dense=None,
+    init_state=None,
+    stop: int | None = None,
+    return_state: bool = False,
 ):
     """Direction-optimizing SSSP: per iteration the push step when the
     frontier's out-edges and size are under ``edge_budget``, else the pull
     (the frontier-sparse min_plus kernel over ``layout``, a
     ``pad_value=_BIG`` pull layout, or :func:`sssp_step` without one).
     ``layout_dense``, when given with ``layout``, takes the iterations
-    whose frontier covers half the edges. Returns (distances, depth)."""
+    whose frontier covers half the edges. Returns (distances, depth).
+
+    Resumable, for :func:`sssp_do_slabbed`: ``init_state`` (iteration,
+    frontier, distances) continues an earlier call, ``stop`` ends the loop
+    at that iteration count (in place of ``max_iterations``), and
+    ``return_state`` returns the (iteration, frontier, distances) state."""
     V, E = graph.n_vertices, graph.n_edges
     max_it = V if max_iterations is None else max_iterations
     if edge_budget is None:
@@ -184,9 +192,13 @@ def sssp_kernel_do(
         div = 192 if graph.properties.hub_ordered else 128
         edge_budget = max(4096, E // div)
     deg = graph.out_degrees()
-    dist, front = _start(graph, single_source)
-    it = 0
-    while it < max_it:
+    if init_state is None:
+        dist, front = _start(graph, single_source)
+        it = 0
+    else:
+        it, front, dist = init_state
+    limit = max_it if stop is None else stop
+    while it < limit:
         # the iteration's one host read: out-edge sum and size of the frontier
         out_edges, n_front = torch.stack(
             [torch.where(front, deg, 0).sum(), front.sum()]
@@ -202,7 +214,35 @@ def sssp_kernel_do(
         else:
             front, dist = _pull(layout, front, dist)
         it += 1
+    if return_state:
+        return it, front, dist
     return dist, it
+
+
+def sssp_do_slabbed(
+    graph: Graph,
+    single_source: int,
+    rounds_per_dispatch: int = 256,
+    layout=None,
+):
+    """Direction-optimizing SSSP in slabs of ``rounds_per_dispatch``
+    rounds: :func:`sssp_kernel_do` resumed from its state until the
+    frontier is empty (or V rounds). The JAX package slabs its one compiled
+    loop so that no device execution outlasts an RPC deadline; here every
+    round already reads the device once, so the slabs only mirror that
+    API, with distances equal to :func:`sssp_kernel_do`'s. Returns
+    (distances, depth)."""
+    V = graph.n_vertices
+    dist, front = _start(graph, single_source)
+    state = (0, front, dist)
+    while True:
+        state = sssp_kernel_do(graph, single_source, layout=layout,
+                               init_state=state,
+                               stop=state[0] + rounds_per_dispatch,
+                               return_state=True)
+        if not bool(state[1].any()) or state[0] >= V:
+            break
+    return state[2], state[0]
 
 
 def sssp_kernel_delta(

@@ -49,6 +49,11 @@ MAX_SPAN_ROWS = 200  # windows past this take the flat gather instead
 
 
 @dataclasses.dataclass
+class Param:
+    reduce_all_triangles: bool = True
+
+
+@dataclasses.dataclass
 class Result:
     vertex_triangles_count: torch.Tensor  # int32[V]: triangles containing v
     total_triangles_count: int  # sum of the above == 3 * n_triangles

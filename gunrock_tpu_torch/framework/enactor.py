@@ -10,7 +10,8 @@ once per iteration. The JAX package compiles the same loop into one
 ``lax.while_loop``; the virtuals (``prepare_frontier``, ``loop``,
 ``is_converged``, ``finalize``) and the ``iteration`` key are the same.
 
-State contract: ``prepare_frontier()`` returns a dict of tensors; ``loop``
+State contract: ``prepare_frontier()`` returns a dict of tensors (and
+frontier objects); ``loop``
 takes it and returns a new one without writing into the tensors it was
 given, so one initial state can feed the warm-up and the timed run. The
 iteration count doubles as the reference's ``search_depth``.
@@ -42,9 +43,14 @@ class Enactor:
         raise NotImplementedError
 
     def is_converged(self, state: dict):
-        """Convergence predicate as a bool tensor (or bool). Default: the
-        frontier mask ``state['frontier']`` is empty."""
-        return ~state["frontier"].any()
+        """Convergence predicate as a bool tensor (or bool). Default:
+        ``state['frontier']`` is empty, a dense mask or a frontier object
+        with ``is_empty`` (``framework/frontier.py``); either way a 0-d
+        tensor on the device, read once per iteration by :meth:`run`."""
+        frontier = state["frontier"]
+        if hasattr(frontier, "is_empty"):
+            return frontier.is_empty()
+        return ~frontier.any()
 
     def finalize(self, state: dict) -> dict:
         """Post-loop extraction (enactor.hxx:342). Default: identity."""

@@ -1,5 +1,9 @@
-"""CLI parameter system for the examples (the part of
-``gunrock_tpu/io/parameters.py`` the port's CLIs use, plus ``--device``).
+"""CLI parameter system for the examples (port of
+``gunrock_tpu/io/parameters.py``, plus ``--device``). The operator flags
+(``--filter_algorithm/--enable_filter/--enable_uniquify/
+--uniquify_algorithm/--best_effort_uniquify/--uniquify_percent``) are
+parsed into ``Options`` as in the JAX package, where no algorithm reads
+them yet either.
 ``extra_args`` adds a CLI's own flags; they land on ``Parameters.extra``.
 ``--export_metrics`` writes the run's stats JSON (``utils/performance``)
 into ``--json_dir``/``--json_file`` with the ``--tag`` tags."""
@@ -15,8 +19,10 @@ import numpy as np
 from gunrock_tpu_torch.device import DEFAULT
 from gunrock_tpu_torch.ops.configs import (
     AdvanceDirection,
+    FilterAlgorithm,
     LoadBalance,
     Options,
+    UniquifyAlgorithm,
     default_options,
 )
 
@@ -68,6 +74,14 @@ def build_parser(algorithm: str, extra_args=None) -> argparse.ArgumentParser:
     p.add_argument("--advance_direction", default="default",
                    help="advance direction (forward, optimized; 'default' "
                    "picks optimized)")
+    p.add_argument("--filter_algorithm", default="bypass",
+                   help="filter algorithm (remove, predicated, compact, bypass)")
+    p.add_argument("--enable_filter", action="store_true")
+    p.add_argument("--enable_uniquify", action="store_true")
+    p.add_argument("--uniquify_algorithm", default="scatter",
+                   help="uniquify algorithm (unique, unique_copy, scatter)")
+    p.add_argument("--best_effort_uniquify", action="store_true")
+    p.add_argument("--uniquify_percent", type=float, default=100.0)
     p.add_argument("-n", "--num_runs", type=int, default=1)
     p.add_argument("--reorder", default="none", choices=("none", "degree"),
                    help="vertex relabeling before execution (degree = "
@@ -124,6 +138,14 @@ def parse(algorithm: str, argv=None, extra_args=None) -> Parameters:
         advance_direction=auto.advance_direction
         if ns.advance_direction == "default"
         else AdvanceDirection(ns.advance_direction),
+        filter_algorithm=FilterAlgorithm.parse(ns.filter_algorithm),
+        uniquify_algorithm=UniquifyAlgorithm(ns.uniquify_algorithm)
+        if ns.uniquify_algorithm in [u.value for u in UniquifyAlgorithm]
+        else UniquifyAlgorithm.SCATTER,
+        enable_filter=ns.enable_filter,
+        enable_uniquify=ns.enable_uniquify,
+        best_effort_uniquify=ns.best_effort_uniquify,
+        uniquify_percent=ns.uniquify_percent,
     )
     return Parameters(
         filename=ns.market,

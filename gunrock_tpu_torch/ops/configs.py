@@ -46,6 +46,44 @@ class AdvanceDirection(enum.Enum):
     OPTIMIZED = "optimized"  # direction-optimizing (choose per iteration)
 
 
+class AdvanceIO(enum.Enum):
+    """Reference advance_io_type_t (configs.hxx:66-71)."""
+
+    GRAPH = "graph"  # input = all vertices
+    VERTICES = "vertices"
+    EDGES = "edges"
+    NONE = "none"  # no output frontier
+
+
+class FilterAlgorithm(enum.Enum):
+    """Reference filter_algorithm_t (configs.hxx:85-92)."""
+
+    BYPASS = "bypass"  # mark-invalid in place, no compaction
+    PREDICATED = "predicated"  # compaction (copy_if analog)
+    REMOVE = "remove"  # remove_copy_if analog (same as predicated here)
+
+    @staticmethod
+    def parse(name: str) -> "FilterAlgorithm":
+        name = name.strip().lower()
+        aliases = {
+            "bypass": FilterAlgorithm.BYPASS,
+            "predicated": FilterAlgorithm.PREDICATED,
+            "remove": FilterAlgorithm.REMOVE,
+            "compact": FilterAlgorithm.PREDICATED,  # dead in reference too
+        }
+        if name not in aliases:
+            raise ValueError(f"unknown filter algorithm {name!r}")
+        return aliases[name]
+
+
+class UniquifyAlgorithm(enum.Enum):
+    """Reference uniquify_algorithm_t (configs.hxx:95-99)."""
+
+    UNIQUE = "unique"  # sort + adjacent dedup (exact)
+    UNIQUE_COPY = "unique_copy"
+    SCATTER = "scatter"  # first occurrence per vertex, queue order kept
+
+
 def default_options() -> "Options":
     """The port's main path on every device: the bucketed kernels and
     direction-optimizing traversal. (The JAX package falls back to its XLA
@@ -64,4 +102,10 @@ class Options:
 
     load_balance: LoadBalance = LoadBalance.XLA_SEGMENT
     advance_direction: AdvanceDirection = AdvanceDirection.FORWARD
+    filter_algorithm: FilterAlgorithm = FilterAlgorithm.BYPASS
+    uniquify_algorithm: UniquifyAlgorithm = UniquifyAlgorithm.SCATTER
+    enable_filter: bool = True
+    enable_uniquify: bool = False
+    best_effort_uniquify: bool = False
+    uniquify_percent: float = 100.0
     max_iterations: int = 0  # 0 = algorithm default

@@ -287,7 +287,10 @@ def slot_indices(layout: BucketedEdges, ch_act: torch.Tensor | None = None):
 
 
 def _graph_layout(graph, kind: str, window, chunk, pad_value, unit):
-    key = (kind, window, chunk, pad_value, unit)
+    window = WINDOW if window is None else window
+    chunk = CHUNK if chunk is None else chunk
+    # the defaults spelled out or left None: one cache entry
+    key = (kind, window, chunk, float(pad_value), unit)
     if key not in graph.layouts:
         h = graph.host
         # push: rows = sources, cols = destinations; pull: the transpose
@@ -297,9 +300,8 @@ def _graph_layout(graph, kind: str, window, chunk, pad_value, unit):
         vals = np.ones(graph.n_edges, np.float32) if unit else h["values"]
         graph.layouts[key] = build_bucketed_layout(
             rows, cols, vals, graph.n_vertices,
-            window=WINDOW if window is None else window,
-            chunk=CHUNK if chunk is None else chunk,
-            pad_value=pad_value, device=graph.device,
+            window=window, chunk=chunk, pad_value=pad_value,
+            device=graph.device,
         )
     return graph.layouts[key]
 

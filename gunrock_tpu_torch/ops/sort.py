@@ -31,3 +31,16 @@ def stable_sort_by(*operands, num_keys: int = 1):
     """Stable lexicographic sort of ``operands`` by the first ``num_keys``
     of them (reference sort/stable_sort.hxx)."""
     return lex_sort(tuple(operands), num_keys=num_keys)
+
+
+def sort_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of a key tensor (reference radix_sort.hxx:39-47
+    ``sort::radix::sort_keys``)."""
+    return torch.sort(keys).values
+
+
+def sort_pairs(keys: torch.Tensor, values: torch.Tensor):
+    """Key-value pair sort ascending by key, stable (reference
+    radix_sort.hxx:49-62 ``sort::radix::sort_pairs``). Returns
+    (keys, values)."""
+    return lex_sort((keys, values), num_keys=1)

@@ -173,7 +173,7 @@ def _profile(fn, n: int, dev):
 
 def cases(graph, layouts: dict, gen, k_tile=None) -> dict:
     """{case: (call, bytes the call must move, operations, {name: library
-    call}, extra keys)} at the layouts ``unit``, ``valued``, ``pr``,
+    call, or ``plain``: the plain version}, extra keys)} at the layouts ``unit``, ``valued``, ``pr``,
     ``big``, ``hits`` and ``color``; B5's calls take the K tile
     ``k_tile`` when given."""
     from gunrock_tpu_torch.ops.kernels import chunkplan, hits_fused, semiring, spmm
@@ -288,8 +288,11 @@ def cases(graph, layouts: dict, gen, k_tile=None) -> dict:
         xs[c, graph.edge_src[e0:e1].long() - r0] = 1.0
         act = torch.zeros(V, dtype=torch.bool, device=dev)
         act[c] = True
-        out[name] = b5(unit, xs, act, None,
-                       {"sparse_mm": lambda xs=xs: torch.sparse.mm(A_unit, xs)})
+        out[name] = b5(unit, xs, act, None, {
+            "sparse_mm": lambda xs=xs: torch.sparse.mm(A_unit, xs),
+            # the plain version, for the kernel table's plain column
+            "plain": lambda xs=xs, act=act: spmm.bucketed_spmm_sparse_plain(
+                unit, xs, act, None)})
     return out
 
 

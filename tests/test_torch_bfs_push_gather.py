@@ -291,11 +291,10 @@ def _names(pkg):
 
 
 def test_toplevel_names_match_the_jax_package():
-    """The same entry points and classes at the top of both packages, but
-    the JAX package's frontier classes (not ported)."""
-    assert _names(gunrock_tpu) - _names(gunrock_tpu_torch) == {
-        "DenseFrontier", "QueueFrontier"}
-    assert _names(gunrock_tpu_torch) <= _names(gunrock_tpu)
+    """The same entry points and classes at the top of both packages, the
+    frontier classes among them."""
+    assert _names(gunrock_tpu_torch) == _names(gunrock_tpu)
+    assert {"DenseFrontier", "QueueFrontier"} <= _names(gunrock_tpu_torch)
     for pkg in (gunrock_tpu, gunrock_tpu_torch):
         assert isinstance(pkg.algorithms, types.ModuleType)
 
@@ -313,8 +312,13 @@ def test_algorithm_modules_under_both_packages(name):
 
 
 def test_fresh_import_exports_and_pulls_in_no_jax():
+    """A fresh import of the package and of the operator layer's modules
+    loads no jax and nothing of gunrock_tpu."""
     code = (
         "import sys, gunrock_tpu_torch as g\n"
+        "import gunrock_tpu_torch.ops, gunrock_tpu_torch.framework.frontier\n"
+        "import gunrock_tpu_torch.io.sample, gunrock_tpu_torch.examples.regression\n"
+        "import gunrock_tpu_torch.ops.search, gunrock_tpu_torch.ops.random\n"
         "missing = [n for n in ('bc_run', 'geo_run', 'spgemm_run', 'tc_run',"
         " 'algorithms') if not hasattr(g, n)]\n"
         f"missing += [n for n in {ALGORITHMS!r} if not hasattr(g.algorithms, n)]\n"

@@ -240,7 +240,7 @@ def test_dense_layouts_only_for_pr_and_hits(graphs, monkeypatch):
     spmv.run(tg, np.ones(tg.n_vertices, np.float32), device="cpu")
     keys = {(kind, w, c, unit) for kind, w, c, _, unit in tg.layouts}
     assert keys == {("pull", W, C, False), ("push", W, C, True),
-                    ("pull", None, None, False), ("push", 2048, 256, False)}
+                    ("pull", 2048, 256, False), ("push", 2048, 256, False)}
 
 
 # -- CLIs and interop -------------------------------------------------------

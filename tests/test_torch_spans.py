@@ -222,3 +222,5 @@ def test_pull_probe_runs_on_cpu(capsys):
     assert all(r["device_ms"] == "not measured" for r in rows)
     assert all("sparse_mm_ms" in r and "sparse_mm_two_calls_ms" in r
                for r in rows if r["case"] == "b8_hits")
+    assert all("plain_ms" in r and "sparse_mm_ms" in r
+               for r in rows if r["case"].startswith("b5_spgemm"))
