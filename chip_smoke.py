@@ -55,6 +55,12 @@ Phases, each raising on failure:
    fused max/min pass (full, 10% and empty frontiers with and without
    out_mask, and an all-zero x, bit for bit; at R-MAT 18 over Luby's
    layout).
+   The async sweep's kernels against their plain loops (min-plus bit for
+   bit with equal sweep and pass counts; PageRank within rtol 1e-5, sweeps
+   within one, two launches bit-equal) on the R-MAT 18 graph and a
+   Delaunay mesh of 2^16 points (natural and RCM order), and at the edge
+   shapes in 1 to 10,000 blocks (clamped to V), edgeless, with a sweep
+   cap of 0 and 1.
    Then the edge shapes again, 20 times, on the range-checking build.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
@@ -96,11 +102,22 @@ Phases, each raising on failure:
       ``queue_to_mask`` and ``mask_to_queue`` on a 1M-entry queue exactly
       against numpy; a queue BFS and a Bellman-Ford SSSP written on the
       operators against ``bfs.run``/``sssp.run`` (equal; rtol 1e-5), and
-      ``bfs.run`` through the BFS enactor against the DO run.
+      ``bfs.run`` through the BFS enactor against the DO run;
+   g. the async sweep (``experimental/async_sweep.py``, one launch of
+      ``csrc/async_sweep.cu`` a search, asserted): ``sssp_async``,
+      ``bfs_async`` and ``pr_async`` (tol 1e-7 and 1e-9) on the R-MAT 18
+      graph from its top-degree vertex, and ``sssp_async`` natural and
+      rcm and ``bfs_async`` rcm on a Delaunay mesh of 2^18 points; BFS
+      depths equal ``bfs.run``'s, SSSP within rtol 1e-5 of ``sssp.run``
+      (R-MAT) and of scipy's Dijkstra (mesh), rcm in no more sweeps than
+      natural, PageRank at tol 1e-9 within rtol 1e-4 of the float64 fixed
+      point and at 1e-7 within rtol 1e-2 / atol 1e-6 of ``pr.run``, two
+      runs bit-equal.
 4. CLIs: bfs (twice; the first also with ``--export_metrics``, whose JSON
    is checked: the reference's keys, the card in ``gpuinfo``), sssp, pr,
    hits, spmv, color, mst, kcore, ppr, bc (one source, all sources), tc,
-   spgemm (esc, dense) and geo with ``--validate``, all started together.
+   spgemm (esc, dense), geo, bfs ``--mode async`` and sssp ``--mode async
+   --ordering rcm`` with ``--validate``, all started together.
 5. the regression battery (``examples/regression.py``) on the card: one
    process per vendored graph family, all seven started together, each
    running its CLI list with ``--validate`` and checking the invariants of
@@ -111,6 +128,8 @@ bench.py's keys, a ``{"semiring_family": ...}`` line, a
 ``{"frontier_family": ...}`` line, an ``{"analysis_family": ...}`` line
 (each with roofline columns from ``utils/roofline``), the probes' lines
 and a ``{"measurement": ...}`` line, an ``{"operators": ...}`` line, an
+``{"async": ...}`` line (each case's sweeps, block passes, wall and device
+ms, idle share and bound), an
 ``{"export": ...}`` line, a ``{"regression_battery": ...}`` line with
 each family's seconds, the seconds of each phase, then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without a CUDA
@@ -1285,11 +1304,12 @@ def check_edge_shapes(torch, dev) -> None:
                      edgeless, x, x, no_slots, no_slots, no_slots, act)):
         if any(bool(y.any()) or y.shape != (V,) for y in sums):
             raise AssertionError("edgeless layout: Weiszfeld sums not 0")
+    errs.update(async_edge_shapes(torch, graph, dev))
     torch.cuda.synchronize()
     print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
           f"negative values; an empty row window; edgeless; spans of 3 "
           f"chunks; C=125; B5 at K=1, 8, 32, 33, 512; B4 at K=1, 4, 8, 32, "
-          f"33): max abs err {errs}")
+          f"33; the sweeps at 1 to 1000 blocks): max abs err {errs}")
 
 
 def compare_probe_kernels(torch, layouts, dev) -> dict:
@@ -2849,6 +2869,408 @@ def operators_path(torch, graph) -> dict:
     return out
 
 
+ASYNC_BLOCKS = 32  # the async sweep's default block count
+# PageRank's tol for the fixed-point check: the JAX test's 1e-7 on a
+# 1,024-vertex graph scaled to the mean rank of R-MAT 18's 262,144 (4e-10),
+# rounded up to 1e-9, several ulps of the largest rank
+PR_FIXED_POINT_TOL = 1e-9
+MESH_SEED = 3
+MESH_POINTS = 2**18  # the async path's mesh: 262,144 points
+MESH_CHECK_POINTS = 2**16  # the mesh the sweeps' plain loops run on
+
+
+def top_vertex(graph) -> int:
+    """The vertex of most out-edges (the lowest id among ties)."""
+    import numpy as np
+
+    return int(np.argmax(np.diff(graph.host["row_offsets"])))
+
+
+def sweep_args(torch, graph, source: int, unit: bool, n_blocks=ASYNC_BLOCKS,
+               max_sweeps=None) -> tuple:
+    """gs_sweep_min's inputs for one search from ``source``, as
+    ``experimental/async_sweep.py`` builds them."""
+    from gunrock_tpu_torch.experimental.async_sweep import _block_plan
+
+    V = graph.n_vertices
+    v_starts, e_starts = _block_plan(graph, max(1, min(n_blocks, V)))
+    dist0 = torch.full((V,), float("inf"), device=graph.device)
+    dist0[source] = 0.0
+    values = torch.ones_like(graph.csc_values) if unit else graph.csc_values
+    return (graph.csc_rows, values, graph.csc_dst, v_starts, e_starts, dist0,
+            2 * V if max_sweeps is None else max_sweeps)
+
+
+def pr_args(torch, graph, tol: float, n_blocks=ASYNC_BLOCKS,
+            alpha: float = 0.85) -> tuple:
+    """gs_sweep_pr's inputs, as ``experimental/async_sweep.pr_async``
+    builds them."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms.pr import compute_iweights
+    from gunrock_tpu_torch.experimental.async_sweep import _block_plan
+
+    V = graph.n_vertices
+    v_starts, e_starts = _block_plan(graph, max(1, min(n_blocks, V)))
+    iweights = compute_iweights(graph, 1.0)
+    return (graph.csc_rows, graph.csc_values * float(np.float32(alpha)),
+            graph.csc_dst, v_starts, e_starts, iweights, iweights == 0.0,
+            torch.full((V,), 1.0 / V, device=graph.device), alpha, tol, 10_000)
+
+
+# the plain loops' results by case: the edge shapes run 21 times with the
+# same inputs, and the plain loops (a host read a block pass) would set
+# the time of each run
+_PLAIN_SWEEPS: dict = {}
+
+
+def _plain_sweep(name: str, what: str, args):
+    from gunrock_tpu_torch.ops.kernels import async_sweep
+
+    key = (name, what)
+    if key not in _PLAIN_SWEEPS:
+        _PLAIN_SWEEPS[key] = getattr(async_sweep, name + "_plain")(*args)
+    return _PLAIN_SWEEPS[key]
+
+
+def check_sweep_min(torch, what: str, args) -> tuple:
+    """gs_sweep_min against its plain loop on the same inputs: distances
+    bit for bit (infinities included), sweeps and block passes equal.
+    Returns (sweeps, passes)."""
+    from gunrock_tpu_torch.ops.kernels import async_sweep
+
+    d, s, p = async_sweep.gs_sweep_min(*args)
+    torch.cuda.synchronize()
+    pd, ps, pp = _plain_sweep("gs_sweep_min", what, args)
+    if not torch.equal(d, pd) or (s, p) != (ps, pp):
+        bad = torch.nonzero(d != pd).flatten()[:5].tolist()
+        raise AssertionError(f"gs_sweep_min {what}: kernel (sweeps {s}, "
+                             f"passes {p}) differs from its plain loop (sweeps "
+                             f"{ps}, passes {pp}); distances differ at {bad}")
+    return s, p
+
+
+def check_sweep_pr(torch, what: str, args) -> float:
+    """gs_sweep_pr against its plain loop: within rtol 1e-5, sweeps within
+    one (rounding can decide the stop), and a second launch bit-equal to
+    the first. Returns the max abs error."""
+    from gunrock_tpu_torch.ops.kernels import async_sweep
+
+    p, s = async_sweep.gs_sweep_pr(*args)
+    torch.cuda.synchronize()
+    pp, ps = _plain_sweep("gs_sweep_pr", what, args)
+    rel = float(((p - pp).abs() / pp.abs()).max()) if p.numel() else 0.0
+    if not rel <= 1e-5 or abs(s - ps) > 1:
+        raise AssertionError(f"gs_sweep_pr {what}: rel err {rel} (limit 1e-5), "
+                             f"sweeps {s} against the plain loop's {ps}")
+    p2, s2 = async_sweep.gs_sweep_pr(*args)
+    if not torch.equal(p2, p) or s2 != s:
+        raise AssertionError(f"gs_sweep_pr {what}: two launches differ")
+    return float((p - pp).abs().max()) if p.numel() else 0.0
+
+
+def async_edge_shapes(torch, graph, dev) -> dict:
+    """The sweep kernels at shapes the main path does not have: the V=1000
+    skewed graph and its reverse (a hub destination of ~2,000 in-edges:
+    the warp fold, eight PageRank pieces) in one block, 7 and 64; a
+    40-vertex graph in more blocks than vertices (clamped to V) and an
+    edgeless graph; a sweep cap of 0 and 1. Returns {kernel: max abs
+    error}."""
+    import numpy as np
+
+    from gunrock_tpu_torch.formats import Coo
+    from gunrock_tpu_torch.graph import build_graph
+
+    h = graph.host
+    V = graph.n_vertices
+    rng = np.random.default_rng(SEED + 3)
+    small = rng.integers(0, 40, (2, 200)).astype(np.int32)
+    graphs = {
+        "skewed": (graph, (1, 7, 64)),
+        "reversed": (build_graph(Coo(V, V, h["col_indices"], h["edge_src"],
+                                     h["values"]), device=dev), (1, 7, 64)),
+        "small": (build_graph(Coo(40, 40, small[0], small[1], (rng.random(
+            200) + 0.1).astype(np.float32)), device=dev), (3, 10_000)),
+        "edgeless": (build_graph(Coo(5, 5, small[0, :0], small[1, :0],
+                                     h["values"][:0]), device=dev), (1, 10_000)),
+    }
+    errs = {"gs_sweep_min": 0.0, "gs_sweep_pr": 0.0}
+    for name, (g, block_counts) in graphs.items():
+        src = top_vertex(g)
+        for n_blocks in block_counts:
+            for unit in (False, True):
+                check_sweep_min(torch, f"{name}, {n_blocks} blocks, unit {unit}",
+                                sweep_args(torch, g, src, unit, n_blocks))
+            e = check_sweep_pr(torch, f"{name}, {n_blocks} blocks",
+                               pr_args(torch, g, 1e-6, n_blocks))
+            errs["gs_sweep_pr"] = max(errs["gs_sweep_pr"], e)
+        for cap in (0, 1):
+            s, _ = check_sweep_min(torch, f"{name}, max_sweeps {cap}",
+                                   sweep_args(torch, g, src, False, 7, cap))
+            if s != cap:
+                raise AssertionError(f"gs_sweep_min {name}: {s} sweeps under a "
+                                     f"cap of {cap}")
+    return errs
+
+
+def async_bound(graph, passes: int, ops_per_edge: int) -> tuple:
+    """The sweep kernels' bound for ``passes`` block passes of an
+    edge-balanced plan: passes x (E/n_blocks x 12 B + V/n_blocks x 8 B) at
+    the card's memory rate (each pass reads its block's edges: source,
+    weight, destination; and its vertices' two words), against
+    ``ops_per_edge`` f32 operations an edge."""
+    E, V, n = graph.n_edges, graph.n_vertices, ASYNC_BLOCKS
+    return bound_ms(passes * (E / n * 12 + V / n * 8),
+                    passes * E / n * ops_per_edge)
+
+
+def sweep_profile(fn, kernel: str) -> dict:
+    """device_profile of one search, taken again (at most three times in
+    all) while the trace holds no event of the sweep kernel ``kernel``
+    (``sweep_min`` or ``sweep_pr``): in a long run the profiler at times
+    returns a trace without the one long cooperative launch, and then
+    nothing of its device time was measured."""
+    for _ in range(3):
+        prof = device_profile(fn)
+        if any(kernel in k for k in prof.get("top_us", {})):
+            return prof
+    return {"wall_us": prof["wall_us"], "device": "not measured"}
+
+
+def async_kernel_rows(torch, graph) -> dict:
+    """Phase 2 for the sweep kernels: each against its plain loop on the
+    R-MAT 18 graph (from its top-degree vertex; SSSP, BFS, PageRank) and on
+    a Delaunay mesh of 2^16 points (SSSP natural, BFS on the RCM order,
+    PageRank), where the plain loops' host reads stay within seconds; then
+    timed at R-MAT 18 (SSSP; PageRank at tol 1e-7) beside the plain loop
+    and the bound. Returns {name: row}."""
+    from gunrock_tpu_torch.graph.reorder import rcm_sort
+    from gunrock_tpu_torch.io.generators import delaunay_graph
+    from gunrock_tpu_torch.ops.kernels import async_sweep
+
+    mesh = delaunay_graph(MESH_CHECK_POINTS, seed=MESH_SEED, device=graph.device)
+    mesh_rcm, ro = rcm_sort(mesh)
+    top, mtop = top_vertex(graph), top_vertex(mesh)
+    info, pr_err = {}, 0.0
+    for what, g, src, unit in (
+            ("rmat18 sssp", graph, top, False), ("rmat18 bfs", graph, top, True),
+            ("mesh16 sssp natural", mesh, mtop, False),
+            ("mesh16 bfs rcm", mesh_rcm, int(ro.rank[mtop]), True)):
+        info[what] = check_sweep_min(torch, what, sweep_args(torch, g, src,
+                                                             unit))
+    for what, g in (("rmat18 pr", graph), ("mesh16 pr", mesh)):
+        pr_err = max(pr_err, check_sweep_pr(torch, what,
+                                            pr_args(torch, g, 1e-7)))
+    print(json.dumps({"sweep_checks": {k: {"sweeps": s, "passes": p}
+                                       for k, (s, p) in info.items()}}))
+
+    rows = {}
+    for name, args, passes, ops, replaces in (
+            ("gs_sweep_min", sweep_args(torch, graph, top, False),
+             info["rmat18 sssp"][1], 2, ":62"),
+            ("gs_sweep_pr", pr_args(torch, graph, 1e-7), None, 3, ":215")):
+        kernel = getattr(async_sweep, name)
+        plain = getattr(async_sweep, name + "_plain")
+        out = kernel(*args)
+        if passes is None:  # PageRank: one pass a block a sweep
+            passes = out[1] * ASYNC_BLOCKS
+        b, by = async_bound(graph, passes, ops)
+        prof = sweep_profile(lambda: kernel(*args), name.replace("gs_", ""))
+        rows[name] = dict(
+            route="cuda", source="gunrock_tpu_torch/csrc/async_sweep.cu",
+            replaces="gunrock_tpu/experimental/async_sweep.py" + replaces,
+            # the min-plus sweeps are held bit for bit
+            max_abs_err=0.0 if name == "gs_sweep_min" else pr_err,
+            ms=time_ms(torch, lambda: kernel(*args), n=3),
+            plain_ms=time_ms(torch, lambda: plain(*args), n=1),
+            bound_ms=b, bound_by=by, library_ms=None,
+            device_ms=prof["busy_us"] / 1e3 if "busy_us" in prof else None,
+            device_kernels_us={k: us for k, (us, _) in
+                               prof.get("top_us", {}).items()},
+            library_device_ms=None, block_passes=passes,
+            grid_barriers_per_pass=2)
+    return rows
+
+
+def async_path(torch, graph, smi: str) -> dict:
+    """Phase 3g, the async sweep (``experimental/async_sweep.py``) at full
+    width: on the R-MAT 18 graph from its top-degree vertex ``sssp_async``,
+    ``bfs_async`` and ``pr_async`` (natural order); on a Delaunay mesh of
+    2^18 points from its top-degree vertex ``sssp_async`` natural and rcm
+    and ``bfs_async`` rcm. Each search must add exactly one launch of its
+    kernel. Checks: BFS depths equal ``bfs.run``'s; SSSP within rtol 1e-5
+    of ``sssp.run`` (R-MAT) and of scipy's Dijkstra (mesh); rcm takes no
+    more sweeps than natural on the mesh; PageRank at tol 1e-7 within rtol
+    1e-2 / atol 1e-6 of ``pr.run``, two runs bit-equal, and at tol 1e-9
+    within rtol 1e-4 of the float64 fixed point. Returns the summary
+    line's dict."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csg
+
+    from gunrock_tpu_torch.algorithms import bfs, pr, sssp
+    from gunrock_tpu_torch.experimental.async_sweep import (
+        bfs_async,
+        pr_async,
+        sssp_async,
+    )
+    from gunrock_tpu_torch.io.generators import delaunay_graph
+    from gunrock_tpu_torch.ops.kernels import _build
+
+    dev = graph.device
+    t0 = time.perf_counter()
+    mesh = delaunay_graph(MESH_POINTS, seed=MESH_SEED, device=dev)
+    mesh_s = time.perf_counter() - t0
+    top, mtop = top_vertex(graph), top_vertex(mesh)
+    cases = [
+        ("rmat18", "natural", "sssp", lambda: sssp_async(graph, top)),
+        ("rmat18", "natural", "bfs", lambda: bfs_async(graph, top)),
+        ("rmat18", "natural", "pr", lambda: pr_async(graph, tol=1e-7)),
+        ("rmat18", "natural", "pr tol 1e-9",
+         lambda: pr_async(graph, tol=PR_FIXED_POINT_TOL)),
+        ("delaunay18", "natural", "sssp", lambda: sssp_async(mesh, mtop)),
+        ("delaunay18", "rcm", "sssp",
+         lambda: sssp_async(mesh, mtop, ordering="rcm")),
+        ("delaunay18", "rcm", "bfs",
+         lambda: bfs_async(mesh, mtop, ordering="rcm")),
+    ]
+    _build.reset_launches()
+    results = []
+    for g, ordering, algo, fn in cases:
+        kernel = "gs_sweep_pr" if algo.startswith("pr") else "gs_sweep_min"
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3  # with any relabel
+        added = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items()
+                 if n != before.get(k, 0)}
+        if added != {kernel: 1}:
+            raise AssertionError(f"async {algo} {g} {ordering}: launched "
+                                 f"{added}, not one {kernel}")
+        results.append((g, ordering, algo, fn, out, first))
+    launches = dict(_build.LAUNCHES)
+
+    # checks
+    def cpu(t):
+        return t.cpu().numpy()
+
+    got = {(g, ordering, algo): out for g, ordering, algo, _, out, _ in results}
+    sd = got["rmat18", "natural", "sssp"][0]
+    bd = got["rmat18", "natural", "bfs"][0]
+    pa = got["rmat18", "natural", "pr"][0]
+    pa_tight = got["rmat18", "natural", "pr tol 1e-9"][0]
+    md_nat, s_nat, _ = got["delaunay18", "natural", "sssp"]
+    md_rcm, s_rcm, _ = got["delaunay18", "rcm", "sssp"]
+    mb_rcm = got["delaunay18", "rcm", "bfs"][0]
+    checks = {}
+    ref = bfs.run(graph, top, device=dev)
+    if not torch.equal(bd, ref.distances):
+        raise AssertionError("bfs_async R-MAT 18: depths differ from bfs.run's")
+    mref = bfs.run(mesh, mtop, device=dev)
+    if not torch.equal(mb_rcm, mref.distances):
+        raise AssertionError("bfs_async delaunay rcm: depths differ from "
+                             "bfs.run's")
+    checks["bfs_levels"] = {"rmat18": ref.search_depth,
+                            "delaunay18": mref.search_depth}
+    checks["sssp_rmat18_err"] = close(
+        "sssp_async R-MAT 18 against sssp.run", cpu(sd),
+        cpu(sssp.run(graph, top, device=dev).distances), 1e-5, 0.0)
+    h = mesh.host
+    A = sp.csr_matrix((h["values"].astype(np.float64), h["col_indices"],
+                       h["row_offsets"]), shape=(mesh.n_vertices,) * 2)
+    want = csg.dijkstra(A, indices=mtop)
+    checks["sssp_delaunay18_err"] = max(
+        close("sssp_async delaunay natural against Dijkstra", cpu(md_nat),
+              want, 1e-5, 0.0),
+        close("sssp_async delaunay rcm against Dijkstra", cpu(md_rcm), want,
+              1e-5, 0.0))
+    if s_rcm > s_nat:
+        raise AssertionError(f"sssp_async delaunay: rcm took {s_rcm} sweeps, "
+                             f"natural {s_nat}")
+    # PageRank: the float64 fixed point by power iteration on the card (one
+    # sparse product an iteration, to a change below 1e-13)
+    V = graph.n_vertices
+    At = torch.sparse_csr_tensor(
+        graph.csc_offsets.long(), graph.csc_rows.long(),
+        graph.csc_values.double(), size=(V, V))
+    outw = torch.zeros(V, dtype=torch.float64, device=dev).index_add_(
+        0, graph.edge_src.long(), graph.values.double())
+    iw = torch.where(outw != 0, 1 / outw, 0.0)
+    p = torch.full((V,), 1 / V, dtype=torch.float64, device=dev)
+    for _ in range(2000):
+        pn = (1 - 0.85 + 0.85 * p[outw == 0].sum()) / V + 0.85 * \
+            torch.sparse.mm(At, (p * iw)[:, None])[:, 0]
+        done = float((pn - p).abs().max()) < 1e-13
+        p = pn
+        if done:
+            break
+    pr_rel = float(((pa_tight.double() - p).abs() / p).max())
+    if not pr_rel < 1e-4:
+        raise AssertionError(f"pr_async R-MAT 18 at tol {PR_FIXED_POINT_TOL}: "
+                             f"{pr_rel} from the float64 fixed point (limit "
+                             "rtol 1e-4)")
+    checks["pr_rel_err_f64"] = pr_rel
+    # tol is an absolute bound on a sweep's largest change: at 1e-7 the
+    # smallest ranks ((1 - alpha) / V = 5.7e-7) stop far from the fixed
+    # point, for the plain loop (the JAX semantics) as for the kernel
+    checks["pr_rel_err_f64_tol_1e-7"] = float(((pa.double() - p).abs() /
+                                               p).max())
+    checks["pr_run_err"] = close("pr_async against pr.run", cpu(pa), cpu(
+        pr.run(graph, tol=1e-7, device=dev).p), 1e-2, 1e-6)
+    again, _ = pr_async(graph, tol=1e-7)
+    if not torch.equal(again, pa):
+        raise AssertionError("pr_async R-MAT 18: two runs differ")
+    checks["pr_bit_equal"] = True
+
+    # each search's kernel alone on its prepared inputs, timed by CUDA
+    # events (the profiler at times returns no device event of a long run)
+    from gunrock_tpu_torch.ops.kernels.async_sweep import gs_sweep_min, gs_sweep_pr
+
+    rg, _, ro = mesh.layouts[("rcm",)]
+    rtop = int(ro.rank[mtop])
+    alone = {
+        "rmat18 natural sssp": (gs_sweep_min, sweep_args(torch, graph, top, False)),
+        "rmat18 natural bfs": (gs_sweep_min, sweep_args(torch, graph, top, True)),
+        "rmat18 natural pr": (gs_sweep_pr, pr_args(torch, graph, 1e-7)),
+        "rmat18 natural pr tol 1e-9": (gs_sweep_pr, pr_args(
+            torch, graph, PR_FIXED_POINT_TOL)),
+        "delaunay18 natural sssp": (gs_sweep_min, sweep_args(torch, mesh, mtop,
+                                                             False)),
+        "delaunay18 rcm sssp": (gs_sweep_min, sweep_args(torch, rg, rtop, False)),
+        "delaunay18 rcm bfs": (gs_sweep_min, sweep_args(torch, rg, rtop, True)),
+    }
+    out_cases = []
+    for g, ordering, algo, fn, out, first in results:
+        kernel, args = alone[f"{g} {ordering} {algo}"]
+        kernel_alone = time_ms(torch, lambda: kernel(*args), n=3)
+        prof = sweep_profile(fn, "sweep_pr" if algo.startswith("pr")
+                             else "sweep_min")
+        wall = time_ms(torch, fn, n=3)
+        gr = graph if g == "rmat18" else mesh
+        sweeps = out[1]
+        pr_case = algo.startswith("pr")
+        passes = sweeps * ASYNC_BLOCKS if pr_case else out[2]
+        kernel_us = {k: us for k, (us, _) in prof.get("top_us", {}).items()
+                     if "sweep_" in k}
+        out_cases.append({
+            "graph": g, "vertices": gr.n_vertices, "edges": gr.n_edges,
+            "search": algo, "ordering": ordering, "sweeps": sweeps,
+            "block_passes": passes, "wall_ms": wall, "first_call_ms": first,
+            "device_ms": prof["busy_us"] / 1e3 if "busy_us" in prof else
+            "not measured",
+            "idle_share": prof.get("idle_share", "not measured"),
+            "kernel_ms": sum(kernel_us.values()) / 1e3 if kernel_us else
+            "not measured",
+            "kernel_alone_ms": kernel_alone,
+            "idle_share_events": 1 - kernel_alone / wall,
+            "bound_ms": async_bound(gr, passes, 3 if pr_case else 2)[0],
+            "name_power_limit": smi})
+    return {"cases": out_cases, "checks": checks, "launches": launches,
+            "mesh_build_s": mesh_s, "name_power_limit": smi}
+
+
 def roof(graph, algo: str, ms: float, edges_visited: int = 0, **extra) -> dict:
     """The roofline columns of one run (``utils/roofline``): modelled
     bytes, their rate and its share of the card's memory rate, with the
@@ -2996,6 +3418,9 @@ def main() -> int:
     t0 = time.perf_counter()
     check_edge_shapes(torch, graph.device)
     rows = check_kernels(torch, graph, layouts)
+    t1 = time.perf_counter()
+    rows.update(async_kernel_rows(torch, graph))
+    seconds["async_kernels"] = time.perf_counter() - t1
     for k, r in rows.items():
         print(f"{k}: max_abs_err {r['max_abs_err']} ms {r['ms']:.4f} device "
               f"{r['device_ms']} plain {r['plain_ms']:.4f} bound "
@@ -3116,6 +3541,17 @@ def main() -> int:
     print(json.dumps({"operators": operators}))
     seconds["operators_path"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    asyncs = async_path(torch, graph, smi)  # counts reset inside, per search
+    launches_async = asyncs["launches"]
+    missing = [k for k in ("gs_sweep_min", "gs_sweep_pr")
+               if launches_async.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"async path launched no {missing}: "
+                             f"{launches_async}")
+    print(json.dumps({"async": asyncs}))
+    seconds["async_path"] = time.perf_counter() - t0
+
     # 4. the CLIs, validated against the CPU oracles (chesapeake is
     # symmetric, so the hits CLI takes the symmetric dense pass)
     t0 = time.perf_counter()
@@ -3139,7 +3575,11 @@ def main() -> int:
             ["gunrock_tpu_torch.examples.tc", "-r"],
             ["gunrock_tpu_torch.examples.spgemm", "--strategy", "esc"],
             ["gunrock_tpu_torch.examples.spgemm", "--strategy", "dense"],
-            ["gunrock_tpu_torch.examples.geo"])]):
+            ["gunrock_tpu_torch.examples.geo"],
+            ["gunrock_tpu_torch.examples.bfs", "--src", "0", "--mode",
+             "async"],
+            ["gunrock_tpu_torch.examples.sssp", "--src", "0", "--mode",
+             "async", "--ordering", "rcm"])]):
         print(line)
     print(json.dumps({"export": check_export(Path(export_dir.name) / "out.json",
                                              name)}))
@@ -3168,7 +3608,7 @@ def main() -> int:
     table = [{"name": k, "launches": launches_bfs.get(k, 0)
               + launches_family.get(k, 0) + launches_frontier.get(k, 0)
               + launches_analysis.get(k, 0) + launches_measure.get(k, 0)
-              + launches_operators.get(k, 0), **r}
+              + launches_operators.get(k, 0) + launches_async.get(k, 0), **r}
              for k, r in rows.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

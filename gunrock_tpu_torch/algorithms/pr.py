@@ -59,10 +59,11 @@ class BatchResult:
 
 
 def _out_wsum(graph: Graph) -> torch.Tensor:
-    """Sum of out-edge weights per vertex (segment sum over edge_src)."""
-    return torch.zeros(graph.n_vertices, dtype=torch.float32,
-                       device=graph.device).index_add_(
-        0, graph.edge_src.long(), graph.values)
+    """Sum of out-edge weights per vertex: a sorted segment sum over the
+    CSR rows, in a fixed order, so that the card gives the same bits run
+    to run (a scatter by atomics does not)."""
+    return torch.segment_reduce(graph.values, "sum",
+                                offsets=graph.row_offsets.long())
 
 
 def compute_iweights(graph: Graph, alpha: float) -> torch.Tensor:

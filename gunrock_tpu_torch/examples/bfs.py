@@ -2,11 +2,16 @@
 
     python -m gunrock_tpu_torch.examples.bfs --market datasets/chesapeake.mtx \\
         --src 0 --validate [--reorder degree] [--device cpu]
+
+``--mode async`` runs the Gauss-Seidel block sweeps
+(``experimental/async_sweep.py``; ``--ordering rcm`` relabels for
+near-monotone paths) instead of level-synchronous BFS.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 from gunrock_tpu_torch.algorithms import bfs
 from gunrock_tpu_torch.examples import cpu_reference, runner
@@ -18,17 +23,43 @@ from gunrock_tpu_torch.io.parameters import parse, parse_source_string
 
 
 def main(argv=None) -> int:
-    params = parse("bfs", argv)
+    params = parse(
+        "bfs", argv,
+        extra_args=[
+            (("--mode",), dict(
+                default="bsp", choices=("bsp", "async"),
+                help="bsp = level-synchronous (default); async = "
+                     "Gauss-Seidel block sweeps (reference async_bfs "
+                     "role — experimental/async_sweep.py)")),
+            (("--ordering",), dict(
+                default="natural", choices=("natural", "rcm"),
+                help="async mode only: rcm relabels for near-monotone "
+                     "paths (best on meshes/roads)")),
+        ],
+    )
     graph, _ = runner.load(params)
     sources = parse_source_string(params.sources, graph.n_vertices,
                                   params.num_runs)
     run_sources = runner.map_sources(params, sources)
     times, depths, result = [], [], None
-    for src in run_sources:
-        result = bfs.run(graph, src, options=params.options,
-                         device=graph.device)
-        times.append(result.elapsed_ms)
-        depths.append(result.search_depth)
+    if params.extra.mode == "async":
+        from gunrock_tpu_torch.experimental.async_sweep import bfs_async
+
+        for src in run_sources:
+            t0 = time.perf_counter()
+            distances, sweeps, passes = bfs_async(
+                graph, src, ordering=params.extra.ordering)
+            times.append((time.perf_counter() - t0) * 1e3)
+            depths.append(sweeps)
+        print(f"async: {sweeps} sweeps, {passes} block passes")
+        result = bfs.Result(distances=distances, predecessors=None,
+                            search_depth=depths[-1], elapsed_ms=times[-1])
+    else:
+        for src in run_sources:
+            result = bfs.run(graph, src, options=params.options,
+                             device=graph.device)
+            times.append(result.elapsed_ms)
+            depths.append(result.search_depth)
     print(f"search depth {result.search_depth}")
     runner.print_head(runner.to_original(params, result.distances),
                       name="distances")

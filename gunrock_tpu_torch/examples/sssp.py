@@ -3,14 +3,15 @@
     python -m gunrock_tpu_torch.examples.sssp --market datasets/chesapeake.mtx \\
         --src 0 --validate [--reorder degree] [--device cpu]
 
-``--mode async`` (the JAX package's Gauss-Seidel sweep,
-``experimental/async_sweep.py``) is not ported yet and exits with an
-error.
+``--mode async`` runs the Gauss-Seidel block sweeps
+(``experimental/async_sweep.py``; ``--ordering rcm`` relabels for
+near-monotone paths) instead of the level/bucket-synchronous search.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 from gunrock_tpu_torch.algorithms import sssp
 from gunrock_tpu_torch.examples import cpu_reference, runner
@@ -27,22 +28,36 @@ def main(argv=None) -> int:
         (("--mode",), dict(
             default="bsp", choices=("bsp", "async"),
             help="bsp = level/bucket-synchronous (default); async = "
-                 "Gauss-Seidel block sweeps (not ported yet)")),
+                 "Gauss-Seidel block sweeps (reference experimental "
+                 "async runtime role — experimental/async_sweep.py)")),
+        (("--ordering",), dict(
+            default="natural", choices=("natural", "rcm"),
+            help="async mode only: rcm relabels for near-monotone "
+                 "paths (best on meshes/roads)")),
     ])
-    if params.extra.mode == "async":
-        print("Error: --mode async is not ported yet (the JAX package's "
-              "experimental/async_sweep.py); use --mode bsp")
-        return 1
     graph, _ = runner.load(params)
     sources = parse_source_string(params.sources, graph.n_vertices,
                                   params.num_runs)
     run_sources = runner.map_sources(params, sources)
     times, depths, result = [], [], None
-    for src in run_sources:
-        result = sssp.run(graph, src, options=params.options,
-                          device=graph.device)
-        times.append(result.elapsed_ms)
-        depths.append(result.search_depth)
+    if params.extra.mode == "async":
+        from gunrock_tpu_torch.experimental.async_sweep import sssp_async
+
+        for src in run_sources:
+            t0 = time.perf_counter()
+            distances, sweeps, passes = sssp_async(
+                graph, src, ordering=params.extra.ordering)
+            times.append((time.perf_counter() - t0) * 1e3)
+            depths.append(sweeps)
+        print(f"async: {sweeps} sweeps, {passes} block passes")
+        result = sssp.Result(distances=distances, predecessors=None,
+                             search_depth=depths[-1], elapsed_ms=times[-1])
+    else:
+        for src in run_sources:
+            result = sssp.run(graph, src, options=params.options,
+                              device=graph.device)
+            times.append(result.elapsed_ms)
+            depths.append(result.search_depth)
     dist = to_numpy(result.distances)
     work = frontier_workload(graph, reached_from_distances(dist))
     print(f"search depth {result.search_depth}, "

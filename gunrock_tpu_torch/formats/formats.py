@@ -119,6 +119,32 @@ def offsets_to_indices(offsets: np.ndarray) -> np.ndarray:
     )[:nnz]
 
 
+def coo_to_csc(coo: Coo) -> Csc:
+    """COO -> CSC with columns sorted by row."""
+    offsets, rows, vals, _ = _counting_sort_to_compressed(
+        coo.col_indices, coo.row_indices, coo.values, coo.n_cols
+    )
+    return Csc(coo.n_rows, coo.n_cols, offsets.astype(np.int32), rows, vals)
+
+
+def indices_to_offsets(indices: np.ndarray, n_segments: int) -> np.ndarray:
+    """Sorted segment ids -> offsets: ``[0,0,1,1,1] -> [0,2,5]``."""
+    counts = np.bincount(indices, minlength=n_segments)
+    return np.concatenate(
+        [np.zeros(1, dtype=np.int64), np.cumsum(counts)]
+    ).astype(np.int32)
+
+
+def csr_to_coo(csr: Csr) -> Coo:
+    return Coo(
+        n_rows=csr.n_rows,
+        n_cols=csr.n_cols,
+        row_indices=offsets_to_indices(csr.row_offsets),
+        col_indices=csr.col_indices,
+        values=csr.values,
+    )
+
+
 def csr_to_csc(csr: Csr):
     """CSR -> CSC. Returns (csc, edge_perm) where ``edge_perm[k]`` is the CSR
     edge index stored at CSC position ``k``."""

@@ -16,6 +16,29 @@ from gunrock_tpu_torch.graph.graph import Graph
 from gunrock_tpu_torch.graph.properties import GraphProperties
 
 
+def build_graph_from_arrays(
+    n_vertices: int,
+    row_offsets: np.ndarray,
+    col_indices: np.ndarray,
+    values: np.ndarray | None = None,
+    properties: GraphProperties | None = None,
+    device=DEFAULT,
+) -> Graph:
+    """Build a Graph on ``device`` from raw CSR arrays (sorted or unsorted
+    rows)."""
+    nnz = int(col_indices.shape[0])
+    if values is None:
+        values = np.ones(nnz, dtype=np.float32)
+    csr = Csr(
+        n_rows=n_vertices,
+        n_cols=n_vertices,
+        row_offsets=np.asarray(row_offsets, dtype=np.int32),
+        col_indices=np.asarray(col_indices, dtype=np.int32),
+        values=np.asarray(values, dtype=np.float32),
+    )
+    return build_graph(csr, properties=properties, device=device)
+
+
 def build_graph(
     fmt: Csr | Coo | Csc,
     properties: GraphProperties | None = None,

@@ -1,8 +1,20 @@
-"""Graph properties (copy of ``gunrock_tpu/graph/properties.py``)."""
+"""Graph properties and view flags (copy of
+``gunrock_tpu/graph/properties.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import enum
+
+
+class View(enum.Flag):
+    """Which format views a graph materializes (reference view_t,
+    graph/properties.hxx:26-31)."""
+
+    CSR = enum.auto()
+    CSC = enum.auto()
+    COO = enum.auto()
+
 
 
 @dataclasses.dataclass(frozen=True, eq=True)

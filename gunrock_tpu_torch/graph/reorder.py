@@ -1,10 +1,13 @@
-"""Degree-sorted vertex relabeling (hub clustering).
+"""Vertex relabelings: degree-sorted (hub clustering) and reverse
+Cuthill-McKee (bandwidth).
 
-Copy of ``gunrock_tpu/graph/reorder.py::degree_sort``. Relabeling vertices
-by descending (in + out) degree concentrates a power-law graph's edges
-into few (row window, col window) buckets, so the bucketed layout holds
-fewer, fuller chunks. Relabel once, run in relabeled space, map results
-back with one gather:
+Copy of ``gunrock_tpu/graph/reorder.py``. Relabeling vertices by
+descending (in + out) degree concentrates a power-law graph's edges into
+few (row window, col window) buckets, so the bucketed layout holds fewer,
+fuller chunks. RCM makes shortest paths on meshes nearly monotone in id
+space, which the Gauss-Seidel sweeps of ``experimental/async_sweep.py``
+need. Relabel once, run in relabeled space, map results back with one
+gather:
 
     rg, ro = degree_sort(graph)
     dist2, it = bfs_kernel_do(rg, int(ro.rank[src]), layout=...)
@@ -48,6 +51,37 @@ def degree_sort(graph: Graph) -> tuple[Graph, Reordering]:
             values=h["values"],
         ),
         properties=dataclasses.replace(graph.properties, hub_ordered=True),
+        device=graph.device,
+    )
+    return g2, Reordering(order=order, rank=rank)
+
+
+def rcm_sort(graph: Graph) -> tuple[Graph, Reordering]:
+    """Reverse-Cuthill-McKee relabeling (scipy's, on ``graph.host``), on
+    the graph's device: a bandwidth-minimizing BFS-level order, the
+    locality counterpart of :func:`degree_sort` for the Gauss-Seidel sweep
+    solver, whose within-sweep freshness only propagates along monotone id
+    paths. Same relabel/map-back contract as :func:`degree_sort`; the
+    properties carry over."""
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csg
+
+    h = graph.host
+    V = graph.n_vertices
+    cols = h["col_indices"]
+    A = sp.csr_matrix(
+        (np.ones(len(cols), np.float32), cols, h["row_offsets"]), shape=(V, V)
+    )
+    order = np.asarray(
+        csg.reverse_cuthill_mckee(A, symmetric_mode=graph.properties.symmetric),
+        np.int32,
+    )
+    rank = np.empty(V, np.int32)
+    rank[order] = np.arange(V, dtype=np.int32)
+    g2 = build_graph(
+        Coo(n_rows=V, n_cols=V, row_indices=rank[h["edge_src"]],
+            col_indices=rank[cols], values=h["values"]),
+        properties=graph.properties,
         device=graph.device,
     )
     return g2, Reordering(order=order, rank=rank)

@@ -13,9 +13,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gunrock_tpu_torch.device import DEFAULT
+from gunrock_tpu_torch.device import DEFAULT, resolve
 from gunrock_tpu_torch.graph import Graph
 from gunrock_tpu_torch.ops.configs import Options
+
+
+def as_device_array(x, device=DEFAULT) -> torch.Tensor:
+    """One contiguous tensor on ``device`` from a torch tensor or a numpy
+    array (role of the reference's ``data_ptr()`` reads,
+    bindings.cu:65-82). A contiguous tensor already on ``device``, or a
+    contiguous writable array for the CPU, comes back without a copy (the
+    same ``data_ptr()``); anything else is copied once on its way there,
+    and packed if it was not contiguous."""
+    dev = resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if isinstance(x, np.ndarray):
+        if not x.flags.writeable:  # torch cannot view read-only memory
+            return torch.tensor(x, device=dev)
+        x = torch.from_numpy(x)
+    elif not isinstance(x, torch.Tensor):
+        raise TypeError(f"as_device_array takes a torch.Tensor or a numpy "
+                        f"array, got {type(x)!r}")
+    if x.device == dev:
+        return x.contiguous()
+    return x.to(dev, memory_format=torch.contiguous_format)
 
 
 def _fill(out, values: torch.Tensor) -> None:

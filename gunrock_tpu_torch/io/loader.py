@@ -1,5 +1,5 @@
 """Graph-file loader with extension sniffing (copy of
-``gunrock_tpu/io/loader.py`` for .mtx and the binary .csr cache)."""
+``gunrock_tpu/io/loader.py``): .mtx, .smtx and the binary .csr cache."""
 
 from __future__ import annotations
 
@@ -20,8 +20,21 @@ def is_binary_csr(path: str | Path) -> bool:
     return str(path).endswith(".csr")
 
 
+def is_smtx(path: str | Path) -> bool:
+    return str(path).endswith(".smtx")
+
+
 def extract_filename(path: str | Path) -> str:
     return Path(path).name
+
+
+def extract_dataset(filename: str) -> str:
+    """Dataset name = filename stem (reference util/filepath.hxx)."""
+    name = filename
+    for suffix in (".gz", ".mtx", ".csr", ".smtx", ".mm"):
+        if name.endswith(suffix):
+            name = name[: -len(suffix)]
+    return name
 
 
 def load_graph_file(
@@ -29,13 +42,18 @@ def load_graph_file(
     properties: GraphProperties | None = None,
     device=DEFAULT,
 ) -> tuple[Graph, GraphProperties]:
-    """Load a .mtx (.mtx.gz, .mm) or binary .csr file into a Graph on
-    ``device``."""
+    """Load a .mtx (.mtx.gz, .mm), .smtx or binary .csr file into a Graph
+    on ``device``."""
     device = resolve(device)  # fail before parsing when there is no card
     path = Path(path)
     if is_binary_csr(path):
         props = properties or GraphProperties(directed=True, weighted=True)
         return build_graph(Csr.read_binary(path), props, device), props
+    if is_smtx(path):
+        from gunrock_tpu_torch.io.smtx import load_smtx
+
+        props = properties or GraphProperties(directed=True, weighted=True)
+        return build_graph(load_smtx(path), props, device), props
     if is_market(path):
         from gunrock_tpu_torch.io.matrix_market import load_matrix_market
 

@@ -1,0 +1,210 @@
+"""Gauss-Seidel block sweeps: the async solver's whole loop in one launch.
+
+Port of ``gunrock_tpu/experimental/async_sweep.py::_sweep_kernel`` (min-
+plus sweeps: SSSP, and BFS on unit weights) and ``::_pr_gs_kernel``
+(PageRank sweeps), which the JAX package compiles into one
+``lax.while_loop`` each (XLA, no Pallas), so that the host reads nothing
+until the search ends.
+
+Both take a block plan: ``v_starts`` int32[n_blocks + 1] (contiguous
+vertex blocks) and ``e_starts`` int32[n_blocks] (each block's first CSC
+slot; its in-edges are ``[e_starts[b], e_starts[b + 1])``, E for the
+last), from ``experimental/async_sweep.py::_block_plan``.
+
+CUDA source: ``csrc/async_sweep.cu``: one cooperative launch a search, the
+grid walking the sweeps, blocks and passes together between grid barriers;
+the counts stay on the card until the wrapper reads them, once, at the
+end. The plain versions below are Python loops that mirror the JAX code
+line for line, with one host read a block pass; a wrapper given CPU
+tensors runs them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gunrock_tpu_torch.ops.kernels import _build
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "gr_gs_sweep_min": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
+                        _I, _P],
+    "gr_gs_sweep_pr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _L, _F, _F, _F, _I, _P],
+}
+_NOT_SUPPORTED = 801  # cudaErrorNotSupported: no cooperative launch
+PIECE = 256  # csrc/async_sweep.cu kPiece: in-edges a warp sums
+
+
+def _check_plan(csc_rows, csc_values, csc_dst, v_starts, e_starts, V: int):
+    dev = csc_rows.device
+    E = csc_rows.shape[0]
+    n_blocks = v_starts.shape[0] - 1
+    if n_blocks < 1:
+        raise ValueError("the block plan needs at least one block")
+    _build.check_tensor(csc_rows, "csc_rows", torch.int32, (E,), dev)
+    _build.check_tensor(csc_values, "csc_values", torch.float32, (E,), dev)
+    _build.check_tensor(csc_dst, "csc_dst", torch.int32, (E,), dev)
+    _build.check_tensor(v_starts, "v_starts", torch.int32, (n_blocks + 1,), dev)
+    _build.check_tensor(e_starts, "e_starts", torch.int32, (n_blocks,), dev)
+    return dev, E, n_blocks
+
+
+def _launched(err: int, what: str) -> None:
+    if err == _NOT_SUPPORTED:
+        raise RuntimeError(f"{what}: the device has no cooperative launch "
+                           "(cudaDevAttrCooperativeLaunch)")
+    _build.check(err, what)
+    _build.LAUNCHES[what] += 1
+
+
+def gs_sweep_min(csc_rows, csc_values, csc_dst, v_starts, e_starts,
+                 dist0, max_sweeps: int):
+    """Min-plus Gauss-Seidel sweeps from ``dist0`` f32[V]. Returns
+    ``(dist f32[V], sweeps, block_passes)``: a sweep walks every block
+    once (forward on even sweeps, backward on odd ones), and each block
+    repeats passes to its local fixed point; ``block_passes`` counts them
+    all."""
+    V = dist0.shape[0]
+    dev, E, n_blocks = _check_plan(csc_rows, csc_values, csc_dst, v_starts,
+                                   e_starts, V)
+    _build.check_tensor(dist0, "dist0", torch.float32, (V,), dev)
+    if dev.type == "cpu":
+        return gs_sweep_min_plain(csc_rows, csc_values, csc_dst, v_starts,
+                                  e_starts, dist0, max_sweeps)
+    if dev.type != "cuda":
+        raise ValueError(f"no gs_sweep_min kernel for device {dev}")
+    dist = torch.empty(V, dtype=torch.float32, device=dev)
+    scratch = torch.empty(V + 2, dtype=torch.float32, device=dev)
+    out = torch.empty(2, dtype=torch.int64, device=dev)
+    lib = _build.load("async_sweep", _SIGNATURES)
+    err = lib.gr_gs_sweep_min(
+        _build.ptr(csc_rows), _build.ptr(csc_values), _build.ptr(csc_dst),
+        _build.ptr(v_starts), _build.ptr(e_starts), _build.ptr(dist0),
+        _build.ptr(dist), _build.ptr(scratch), _build.ptr(out), V, E,
+        n_blocks, int(max_sweeps), _build.sm_count(dev), _build.stream(dev),
+    )
+    _launched(err, "gs_sweep_min")
+    sweeps, passes = out.tolist()  # the search's one device-to-host read
+    return dist, sweeps, passes
+
+
+def gs_sweep_min_plain(csc_rows, csc_values, csc_dst, v_starts, e_starts,
+                       dist0, max_sweeps: int):
+    """Plain PyTorch version of :func:`gs_sweep_min`."""
+    E = csc_rows.shape[0]
+    vs = v_starts.tolist()
+    es = e_starts.tolist() + [E]
+    n_blocks = len(vs) - 1
+    inf = float("inf")
+    d = dist0.clone()
+    sweeps, passes, changed = 0, 0, True
+    while changed and sweeps < max_sweeps:
+        old = d.clone()
+        order = range(n_blocks) if sweeps % 2 == 0 else range(n_blocks - 1, -1, -1)
+        for b in order:
+            v0, v1, e0, e1 = vs[b], vs[b + 1], es[b], es[b + 1]
+            src = csc_rows[e0:e1].long()
+            w = csc_values[e0:e1]
+            loc = (csc_dst[e0:e1] - v0).long()
+            block_changed = True
+            while block_changed:
+                cand = d[src] + w
+                relaxed = torch.full((v1 - v0,), inf, dtype=d.dtype,
+                                     device=d.device).scatter_reduce_(
+                    0, loc, cand, "amin", include_self=True)
+                cur = d[v0:v1]
+                upd = torch.minimum(cur, relaxed)
+                block_changed = bool((upd < cur).any())
+                d[v0:v1] = upd
+                passes += 1
+        changed = bool((d < old).any())
+        sweeps += 1
+    return d, sweeps, passes
+
+
+def _pieces(csc_dst, V: int):
+    """(csc offsets int32[V+1], piece_first int32[V+1]): each vertex's
+    in-edges cut into pieces of ``PIECE`` (at least one piece a vertex)."""
+    grid = torch.arange(V + 1, dtype=torch.int32, device=csc_dst.device)
+    offsets = torch.searchsorted(csc_dst, grid, out_int32=True)
+    n = torch.clamp((torch.diff(offsets) + PIECE - 1) // PIECE, min=1)
+    first = torch.zeros(V + 1, dtype=torch.int32, device=csc_dst.device)
+    first[1:] = torch.cumsum(n, 0)
+    return offsets, first
+
+
+def gs_sweep_pr(csc_rows, csc_values, csc_dst, v_starts, e_starts, iweights,
+                dangling, p0, alpha: float, tol: float, max_sweeps: int):
+    """Gauss-Seidel PageRank sweeps from ``p0`` f32[V]; ``csc_values`` has
+    ``alpha`` folded in, ``iweights`` is 1 / out-weight (0 where
+    ``dangling``). Returns ``(p f32[V], sweeps)``. Sums are taken in a
+    fixed order: two runs give the same bits."""
+    V = p0.shape[0]
+    dev, E, n_blocks = _check_plan(csc_rows, csc_values, csc_dst, v_starts,
+                                   e_starts, V)
+    _build.check_tensor(iweights, "iweights", torch.float32, (V,), dev)
+    _build.check_tensor(dangling, "dangling", torch.bool, (V,), dev)
+    _build.check_tensor(p0, "p0", torch.float32, (V,), dev)
+    if dev.type == "cpu":
+        return gs_sweep_pr_plain(csc_rows, csc_values, csc_dst, v_starts,
+                                 e_starts, iweights, dangling, p0, alpha,
+                                 tol, max_sweeps)
+    if dev.type != "cuda":
+        raise ValueError(f"no gs_sweep_pr kernel for device {dev}")
+    offsets, first = _pieces(csc_dst, V)
+    n_pieces = V + E // PIECE + 1  # >= first[V], no read needed
+    max_grid = _build.sm_count(dev)
+    p = torch.empty(V, dtype=torch.float32, device=dev)
+    scratch = torch.empty(2 * n_pieces + 2 * max_grid, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(1, dtype=torch.int64, device=dev)
+    lib = _build.load("async_sweep", _SIGNATURES)
+    err = lib.gr_gs_sweep_pr(
+        _build.ptr(csc_rows), _build.ptr(csc_values), _build.ptr(offsets),
+        _build.ptr(first), _build.ptr(v_starts), _build.ptr(iweights),
+        _build.ptr(dangling), _build.ptr(p0), _build.ptr(p),
+        _build.ptr(scratch), _build.ptr(out), V, E, n_blocks, n_pieces,
+        int(max_sweeps), float(alpha), float(1.0 - alpha), float(tol),
+        max_grid, _build.stream(dev),
+    )
+    _launched(err, "gs_sweep_pr")
+    return p, int(out.item())  # the search's one device-to-host read
+
+
+def gs_sweep_pr_plain(csc_rows, csc_values, csc_dst, v_starts, e_starts,
+                      iweights, dangling, p0, alpha: float, tol: float,
+                      max_sweeps: int):
+    """Plain PyTorch version of :func:`gs_sweep_pr`."""
+    V = p0.shape[0]
+    E = csc_rows.shape[0]
+    vs = v_starts.tolist()
+    es = e_starts.tolist() + [E]
+    n_blocks = len(vs) - 1
+    p = p0.clone()
+    dsum = torch.where(dangling, alpha * p, 0.0).sum()
+    sweeps, err = 0, float("inf")
+    while err >= tol and sweeps < max_sweeps:
+        order = range(n_blocks) if sweeps % 2 == 0 else range(n_blocks - 1, -1, -1)
+        err_t = torch.zeros((), dtype=torch.float32, device=p.device)
+        for b in order:
+            v0, v1, e0, e1 = vs[b], vs[b + 1], es[b], es[b + 1]
+            if v1 == v0:
+                continue
+            src = csc_rows[e0:e1].long()
+            contrib = p[src] * iweights[src] * csc_values[e0:e1]
+            summed = torch.zeros(v1 - v0, dtype=p.dtype, device=p.device
+                                 ).index_add_(0, (csc_dst[e0:e1] - v0).long(),
+                                              contrib)
+            base = (1.0 - alpha + dsum) / V
+            cur = p[v0:v1]
+            new = base + summed
+            dsum = dsum + alpha * torch.where(dangling[v0:v1], new - cur,
+                                              0.0).sum()
+            err_t = torch.maximum(err_t, (new - cur).abs().max())
+            p[v0:v1] = new
+        err = float(err_t)
+        sweeps += 1
+    return p, sweeps

@@ -234,17 +234,14 @@ def _cli_options(pkg: str, name: str, monkeypatch) -> dict:
 @pytest.mark.parametrize("name", CLIS)
 def test_cli_option_sets_match_jax(name, monkeypatch):
     """Every port CLI has the JAX CLI's options with the same defaults,
-    the six operator flags among them. Known differences: the port adds
-    ``--device`` (and mst its ``--strategy``, ROADMAP C); the JAX bfs and
-    sssp CLIs have the async sweep's ``--mode``/``--ordering``, which the
-    port has not yet (ROADMAP A)."""
+    the six operator flags and the async sweep's ``--mode``/``--ordering``
+    among them. Known differences: the port adds ``--device`` (and mst its
+    ``--strategy``, ROADMAP C)."""
     j = _cli_options("gunrock_tpu", name, monkeypatch)
     t = _cli_options("gunrock_tpu_torch", name, monkeypatch)
     port_only = {"--device"} | ({"--strategy"} if name == "mst" else set())
-    jax_only = {"bfs": {"--mode", "--ordering"},
-                "sssp": {"--ordering"}}.get(name, set())
     assert set(t) - set(j) == port_only
-    assert set(j) - set(t) == jax_only
+    assert set(j) - set(t) == set()
     assert {k: t[k] for k in set(j) & set(t)} == \
         {k: j[k] for k in set(j) & set(t)}
     assert set(SIX_FLAGS) <= set(t)
