@@ -112,7 +112,19 @@ Phases, each raising on failure:
       (R-MAT) and of scipy's Dijkstra (mesh), rcm in no more sweeps than
       natural, PageRank at tol 1e-9 within rtol 1e-4 of the float64 fixed
       point and at 1e-7 within rtol 1e-2 / atol 1e-6 of ``pr.run``, two
-      runs bit-equal.
+      runs bit-equal;
+   h. the distributed layer (``parallel/``, one process a shard): four
+      ranks share the card under gloo, their collectives staged through
+      the host, and run every sharded algorithm on the R-MAT 18 graph in
+      all_gather mode (bfs, sssp, pagerank, spmv and hits also through
+      their kernels on each rank's own layout: B1 planned by B2, B3) and
+      BFS and SSSP on the 2^18-point Delaunay mesh in halo mode, with and
+      without layouts; one rank runs BFS and SSSP through their kernels
+      and PageRank under NCCL; each result is held against the
+      single-device port's on the card, each collective against numpy,
+      and each layout case's kernels must launch in every rank (the
+      launches, summed over ranks, join the kernel table); then the bfs
+      and pr CLIs with ``--devices 4 --validate`` on the R-MAT graph.
 4. CLIs: bfs (twice; the first also with ``--export_metrics``, whose JSON
    is checked: the reference's keys, the card in ``gpuinfo``), sssp, pr,
    hits, spmv, color, mst, kcore, ppr, bc (one source, all sources), tc,
@@ -129,7 +141,10 @@ bench.py's keys, a ``{"semiring_family": ...}`` line, a
 (each with roofline columns from ``utils/roofline``), the probes' lines
 and a ``{"measurement": ...}`` line, an ``{"operators": ...}`` line, an
 ``{"async": ...}`` line (each case's sweeps, block passes, wall and device
-ms, idle share and bound), an
+ms, idle share and bound), a ``{"distributed": ...}`` line (per sharded
+case the wall ms of a run beside the single-device ms, the exchange mode
+and bytes, the backend, each rank's launches of the layout cases, the
+phase's seconds), an
 ``{"export": ...}`` line, a ``{"regression_battery": ...}`` line with
 each family's seconds, the seconds of each phase, then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without a CUDA
@@ -171,6 +186,18 @@ EXPORT_KEYS = {
     "max_search_depth", "srcs", "tags", "command_line", "git_commit_sha",
     "compiler", "compiler_version", "gpuinfo", "sysinfo", "time",
 }
+
+
+def kernels_of_one_call(fn, tries: int = 3) -> dict:
+    """The device kernels (name -> launches) of one call of ``fn``, from a
+    torch.profiler profile. The profiler at times records no device event
+    of a run ("not measured"); then the call is profiled again, at most
+    ``tries`` times, and an empty dict is returned if none is measured."""
+    for _ in range(tries):
+        prof = device_profile(fn)
+        if "top_us" in prof:
+            return {k: n for k, (_, n) in prof["top_us"].items()}
+    return {}
 
 
 def time_ms(torch, fn, n: int = 20) -> float:
@@ -1447,9 +1474,8 @@ def check_kernels(torch, graph, layouts):
     # chunk plan as the span passes call it: masks in, the chunk mask out
     # (four metadata words a chunk in); one device kernel a call
     b, by = bound_ms(2 * V + 16 * n_chunks + n_chunks, 4 * n_chunks)
-    prof = device_profile(lambda: chunkplan.chunk_activity(lay, full, full,
-                                                           queue=False))
-    launched = {k: n for k, (_, n) in prof.get("top_us", {}).items()}
+    launched = kernels_of_one_call(lambda: chunkplan.chunk_activity(
+        lay, full, full, queue=False))
     if list(launched.values()) != [1]:
         raise AssertionError(f"chunk_activity: one call ran {launched}, not "
                              "one device kernel")
@@ -1524,8 +1550,8 @@ def check_kernels(torch, graph, layouts):
     clone_ms = time_ms(torch, lambda: dist0.clone())
     # one device operation a call: the cooperative launch, no memset
     d = dist0.clone()
-    prof = device_profile(lambda: bfs.bfs_push_step(graph, front, d, 1, 0))
-    launched = {k: n for k, (_, n) in prof.get("top_us", {}).items()}
+    launched = kernels_of_one_call(
+        lambda: bfs.bfs_push_step(graph, front, d, 1, 0))
     if list(launched.values()) != [1]:
         raise AssertionError(f"bfs_push_step: one call ran {launched}, not "
                              "one device kernel")
@@ -3313,6 +3339,374 @@ def family_rooflines(graph, family: str, out: dict) -> dict:
         "geo": roof(graph, "geo", out["geo"]["ms"], E * steps, iterations=steps)}
 
 
+DIST_RANKS = 4  # ranks of the gloo run on the one card
+# geolocation's iterations in the distributed phase, both sides
+DIST_GEO = {"total_iterations": 2, "spatial_iterations": 100}
+# the backend the one-rank run must take (a card of its own)
+DIST_SOLE_BACKEND = "nccl"
+# the R-MAT cases timed twice (the second run is reported): the ones that
+# take the kernel path, and their segment-reduction twins
+DIST_REPEAT = {"bfs", "sssp", "pagerank", "spmv", "hits"}
+
+
+def distributed_cases(top: int, mtop: int, x, lat, lon, perm) -> list:
+    """Phase 3h's cases for ``probes.mesh.run_cases``: every sharded
+    algorithm but k-core on the R-MAT graph in all_gather mode, the five
+    layout algorithms also through their kernels (B1 planned by B2 for bfs
+    and sssp, B3 for pagerank, spmv and hits), BFS and SSSP on the
+    Delaunay mesh in the mode the partition picks, with and without
+    layouts, k-core there (it peels in-degrees: undirected graphs), the
+    mesh's collectives against their numpy answers, and the pieces of a
+    BFS round on the R-MAT graph per rank (``round_costs``)."""
+    inf = float("inf")
+    R = {"graph": "rmat", "use_halo": False}
+    M = {"graph": "mesh", "use_halo": None}
+    cases = [
+        {"name": "collectives", "algo": "collectives", "kwargs": {"seed": SEED}},
+        {"name": "round", "algo": "round", "args": [top], **R},
+        {"name": "bfs", "algo": "bfs", "args": [top], **R},
+        {"name": "bfs_layouts", "algo": "bfs", "args": [top],
+         "layouts": {"side": "d"}, **R},
+        {"name": "sssp", "algo": "sssp", "args": [top], **R},
+        {"name": "sssp_layouts", "algo": "sssp", "args": [top],
+         "layouts": {"side": "d", "pad_value": inf}, **R},
+        {"name": "pagerank", "algo": "pagerank", **R},
+        {"name": "pagerank_layouts", "algo": "pagerank",
+         "layouts": {"side": "d"}, **R},
+        {"name": "spmv", "algo": "spmv", "args": [x], **R},
+        {"name": "spmv_layouts", "algo": "spmv", "args": [x],
+         "layouts": {"side": "s"}, **R},
+        {"name": "hits", "algo": "hits", "kwargs": {"max_iterations": 20}, **R},
+        {"name": "hits_layouts", "algo": "hits",
+         "kwargs": {"max_iterations": 20},
+         "layouts": [{"side": "s", "unit": True}, {"side": "d", "unit": True}],
+         **R},
+        {"name": "ppr", "algo": "ppr", "args": [top], **R},
+        {"name": "color", "algo": "color", "kwargs": {"perm": perm}, **R},
+        {"name": "color_greedy", "algo": "color_greedy", **R},
+        {"name": "bc", "algo": "bc", "args": [top], **R},
+        {"name": "geo", "algo": "geo", "args": [lat, lon], "kwargs": DIST_GEO,
+         **R},
+        {"name": "mst", "algo": "mst", **R},
+        {"name": "spgemm_count", "algo": "spgemm_count", "graph_b": "rmat",
+         **R},
+        {"name": "tc", "algo": "tc", "graph": "rmat"},
+        {"name": "mesh_bfs", "algo": "bfs", "args": [mtop], **M},
+        {"name": "mesh_bfs_layouts", "algo": "bfs", "args": [mtop],
+         "layouts": {"side": "d"}, **M},
+        {"name": "mesh_sssp", "algo": "sssp", "args": [mtop], **M},
+        {"name": "mesh_sssp_layouts", "algo": "sssp", "args": [mtop],
+         "layouts": {"side": "d", "pad_value": inf}, **M},
+        # the sharded k-core peels in-degrees: an undirected graph's cores
+        {"name": "mesh_kcore", "algo": "kcore", **M},
+    ]
+    for c in cases:
+        c["repeat"] = 2 if c["algo"] in DIST_REPEAT and c.get(
+            "graph") == "rmat" else 1
+    return cases
+
+
+def distributed_refs(torch, graph, mesh, top, mtop, x, lat, lon, perm):
+    """The single-device port's runs on the card that phase 3h holds the
+    sharded results against: name -> (result, ms)."""
+    from gunrock_tpu_torch.algorithms import (bc, bfs, color, geo, hits,
+                                              kcore, mst, ppr, pr, spgemm,
+                                              spmv, sssp, tc)
+
+    dev = graph.device
+
+    def clocked(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    refs = {}
+    r = bfs.run(graph, top, device=dev)
+    refs["bfs"] = (r.distances.cpu().numpy(), r.elapsed_ms)
+    r = sssp.run(graph, top, device=dev)
+    refs["sssp"] = (r.distances.cpu().numpy(), r.elapsed_ms)
+    r = pr.run(graph, device=dev)
+    refs["pagerank"] = (r.p.cpu().numpy(), r.elapsed_ms)
+    r = spmv.run(graph, x, device=dev)
+    refs["spmv"] = (r.y.cpu().numpy(), r.elapsed_ms)
+    r = hits.run(graph, max_iterations=20, device=dev)
+    refs["hits"] = ((r.auth.cpu().numpy(), r.hub.cpu().numpy(),
+                     r.iterations), r.elapsed_ms)
+    r = ppr.run(graph, top, device=dev)
+    refs["ppr"] = (r.p.cpu().numpy(), r.elapsed_ms)
+    (c, _), ms = clocked(lambda: color.color_kernel(graph, priorities=perm))
+    refs["color"] = (c.cpu().numpy(), ms)
+    (c, _), ms = clocked(lambda: color.color_kernel_greedy(graph))
+    refs["color_greedy"] = (c.cpu().numpy(), ms)
+    r = bc.run(graph, top, device=dev)
+    refs["bc"] = (r.bc_values.cpu().numpy(), r.elapsed_ms)
+    r = geo.run(graph, lat, lon, device=dev, **DIST_GEO)
+    refs["geo"] = ((r.latitude.cpu().numpy(), r.longitude.cpu().numpy()),
+                   r.elapsed_ms)
+    r = mst.run(graph, device=dev)
+    refs["mst"] = (r.mst_weight, r.elapsed_ms)
+    r = spgemm.run(graph, graph, count_only=True, strategy="esc", device=dev)
+    refs["spgemm_count"] = ((r.nnz, float(r.values[0])), r.elapsed_ms)
+    r = tc.run(graph, device=dev)
+    refs["tc"] = ((r.vertex_triangles_count.cpu().numpy(),
+                   r.total_triangles_count), r.elapsed_ms)
+    r = bfs.run(mesh, mtop, device=dev)
+    refs["mesh_bfs"] = (r.distances.cpu().numpy(), r.elapsed_ms)
+    r = sssp.run(mesh, mtop, device=dev)
+    refs["mesh_sssp"] = (r.distances.cpu().numpy(), r.elapsed_ms)
+    r = kcore.run(mesh, device=dev)
+    refs["mesh_kcore"] = ((r.k_cores.cpu().numpy(), r.degeneracy),
+                          r.elapsed_ms)
+    return refs
+
+
+def check_distributed(graph, case: dict, refs: dict) -> None:
+    """Raise unless a sharded result agrees with the single-device port's:
+    exact for BFS depths, k-cores, colors (and proper over every edge),
+    the triangle and product counts; rtol 1e-5 for SSSP and the MST
+    weight; PageRank within rtol 1e-4 / atol 1e-9 of the float64 oracle
+    after as many iterations; rtol 1e-4 for SpMV and HITS (one iteration
+    of slack) and for PPR (atol 1e-6) and BC (atol 1e-3), as the
+    single-device checks hold them; geo as the analysis path holds its two
+    paths (at most 1 in 10,000 located vertices past rtol 2e-3 + 2e-3)."""
+    import numpy as np
+
+    from gunrock_tpu_torch.examples import cpu_reference
+
+    name, got = case["name"], case["result"]
+    base = name.replace("_layouts", "")
+    want = refs[base][0]
+    if base in ("bfs", "mesh_bfs"):
+        if not np.array_equal(got[0], want):
+            raise AssertionError(f"sharded {name}: depths differ at "
+                                 f"{np.flatnonzero(got[0] != want)[:5]}")
+    elif base in ("sssp", "mesh_sssp"):
+        close(f"sharded {name}", got[0], want, 1e-5, 0.0)
+    elif base == "pagerank":
+        oracle = cpu_reference.pr(graph, 0.85, tol=0.0, max_iter=got[1])
+        close(f"sharded {name}", got[0], oracle, 1e-4, 1e-9)
+    elif base == "spmv":
+        close(f"sharded {name}", got, want, 1e-4, 1e-6)
+    elif base == "hits":
+        if abs(got[2] - want[2]) > 1:
+            raise AssertionError(f"sharded {name}: {got[2]} iterations, "
+                                 f"single device {want[2]}")
+        close(f"sharded {name} auth", got[0], want[0], 1e-4, 1e-6)
+        close(f"sharded {name} hub", got[1], want[1], 1e-4, 1e-6)
+    elif base in ("mesh_kcore", "tc"):
+        if not np.array_equal(got[0], want[0]) or got[1] != want[1]:
+            raise AssertionError(f"sharded {name}: differs from one device")
+    elif base == "ppr":
+        close(f"sharded {name}", got[0], want, 1e-4, 1e-6)
+    elif base in ("color", "color_greedy"):
+        c = got[0]
+        src, dst = graph.host["edge_src"], graph.host["col_indices"]
+        off = src != dst
+        if (c < 0).any() or (c[src[off]] == c[dst[off]]).any():
+            raise AssertionError(f"sharded {name}: not a proper coloring")
+        if not np.array_equal(c, want):
+            raise AssertionError(f"sharded {name}: differs from one device "
+                                 f"under the same priorities")
+    elif base == "bc":
+        close(f"sharded {name}", got, want, 1e-4, 1e-3)
+    elif base == "geo":
+        for g, w in zip(got, want):
+            if not np.array_equal(np.isnan(g), np.isnan(w)):
+                raise AssertionError(f"sharded {name}: NaNs differ")
+            ok = ~np.isnan(w)
+            far = np.abs(g[ok] - w[ok]) > 2e-3 + 2e-3 * np.abs(w[ok])
+            if far.sum() * 10_000 > max(ok.sum(), 1):
+                raise AssertionError(f"sharded {name}: {int(far.sum())} of "
+                                     f"{int(ok.sum())} located vertices off")
+    elif base == "mst":
+        close(f"sharded {name}", [got[0]], [want], 1e-5, 0.0)
+    elif base == "spgemm_count":
+        if got[0] != want[0]:
+            raise AssertionError(f"sharded {name}: nnz {got[0]}, one "
+                                 f"device {want[0]}")
+        close(f"sharded {name} checksum", [got[1]], [want[1]], 1e-4, 0.0)
+    else:
+        raise AssertionError(f"no check for the sharded case {name}")
+
+
+# the algorithms whose result ends with their rounds (iterations)
+DIST_ROUNDS = {"bfs", "sssp", "pagerank", "ppr", "color", "color_greedy",
+               "hits", "mst"}
+# the wall times of a BFS round's pieces each rank must report
+DIST_ROUND_KEYS = ("all_gather_f32_ms", "all_gather_bool_ms",
+                   "pmax_scalar_ms", "loop_test_ms", "round_local_ms")
+# the kernels each layout case must launch in every rank
+DIST_KERNELS = {
+    "bfs_layouts": ("chunk_activity", "bucketed_semiring_spmv_sparse"),
+    "sssp_layouts": ("chunk_activity", "bucketed_semiring_spmv_sparse"),
+    "mesh_bfs_layouts": ("chunk_activity", "bucketed_semiring_spmv_sparse"),
+    "mesh_sssp_layouts": ("chunk_activity", "bucketed_semiring_spmv_sparse"),
+    "pagerank_layouts": ("bucketed_semiring_spmv",),
+    "spmv_layouts": ("bucketed_semiring_spmv",),
+    "hits_layouts": ("bucketed_semiring_spmv",),
+}
+
+
+def distributed_run(info: dict, graphs: dict, refs: dict, ranks: int,
+                    backend: str) -> tuple:
+    """Check one ``run_cases`` run: its backend and ranks, no jax in any
+    rank, the collectives' numpy answers, every result against the single
+    device, and each layout case's kernels launched in every rank.
+    Returns (per-case summary, launches summed over ranks and cases)."""
+    import numpy as np
+
+    from gunrock_tpu_torch.probes.mesh import collectives_expected
+
+    if info["backend"] != backend or info["ranks"] != ranks:
+        raise AssertionError(f"distributed run: backend {info['backend']}, "
+                             f"{info['ranks']} ranks; want {backend}, {ranks}")
+    if any(info["foreign_modules"]):
+        raise AssertionError(f"a rank imported {info['foreign_modules']}")
+    summary, launches = {}, {}
+    for case in info["cases"]:
+        name = case["name"]
+        if case["algo"] == "collectives":
+            want = collectives_expected(SEED, ranks)
+            for r, (g, w) in enumerate(zip(case["result"]["ranks"], want)):
+                for k in w:
+                    if not np.allclose(np.asarray(g[k], np.float64),
+                                       np.asarray(w[k], np.float64),
+                                       rtol=1e-6, atol=0.0):
+                        raise AssertionError(f"collective {k} on rank {r}: "
+                                             f"{g[k]} != {w[k]}")
+            continue
+        if case["algo"] == "round":
+            by_rank = case["result"]
+            if [r["rank"] for r in by_rank] != list(range(ranks)) or any(
+                    r[k] <= 0 for r in by_rank for k in DIST_ROUND_KEYS):
+                raise AssertionError(f"round costs: {by_rank}")
+            if "bfs_profile" not in by_rank[0]:
+                raise AssertionError("round costs: rank 0 profiled no BFS")
+            summary[name] = {"by_rank": by_rank}
+            continue
+        key = "mesh" if name.startswith("mesh") else "rmat"
+        check_distributed(graphs[key], case, refs)
+        # every rank launched the case's kernels, but one whose layouts
+        # hold no chunk (no edge into its shard): it returns the identity
+        for kernel in DIST_KERNELS.get(name, ()):
+            counts = [rank.get(kernel, 0) for rank in case["launches"]]
+            edges = [sum(c) > 0 for c in case["layout_chunks"]]
+            if any((n > 0) != e for n, e in zip(counts, edges)):
+                raise AssertionError(f"sharded {name}: {kernel} launched "
+                                     f"{counts} times by rank, layout "
+                                     f"chunks {case['layout_chunks']}")
+            if not any(edges):
+                raise AssertionError(f"sharded {name}: no rank has an edge")
+        for rank in case["launches"]:
+            for k, v in rank.items():
+                launches[k] = launches.get(k, 0) + v
+        res = case["result"]
+        summary[name] = {
+            "ms": case["ms"][-1], "ms_runs": case["ms"],
+            "setup_ms": case["setup_ms"], "case_ms": case["case_ms"],
+            "single_ms": refs[name.replace("_layouts", "")][1],
+            "mode": case["mode"], "bytes_per_exchange": case["bytes"],
+            "rounds": res[-1] if case["algo"] in DIST_ROUNDS else None,
+            "launches_by_rank": case["launches"] if name in DIST_KERNELS
+            else None,
+            "layout_chunks_by_rank": case["layout_chunks"]
+            if name in DIST_KERNELS else None}
+    return summary, launches
+
+
+def distributed_path(torch, graph, smi: str) -> dict:
+    """Phase 3h, the distributed layer (``parallel/``) on the card. Four
+    ranks share it under gloo (collectives staged through the host) and
+    run ``distributed_cases`` on the R-MAT graph (all_gather) and the
+    2^18-point Delaunay mesh (the picked mode, halo); one rank runs BFS and
+    SSSP through their kernels and PageRank under NCCL. Every result is
+    held against the single-device port on the card
+    (``check_distributed``), the layout cases' kernels must launch in every
+    rank, and the bfs and pr CLIs run with ``--devices 4 --validate`` on
+    the R-MAT graph written as a binary CSR. Returns the summary line's
+    dict with the launches of the phase summed over ranks."""
+    import numpy as np
+
+    from gunrock_tpu_torch.examples.geo import default_labels
+    from gunrock_tpu_torch.formats import Csr
+    from gunrock_tpu_torch.io.generators import delaunay_graph
+    from gunrock_tpu_torch.parallel.mesh import spawn
+    from gunrock_tpu_torch.probes.mesh import run_cases
+
+    t_start = time.perf_counter()
+    dev = graph.device
+    V = graph.n_vertices
+    mesh = delaunay_graph(MESH_POINTS, seed=MESH_SEED, device=dev)
+    top, mtop = top_vertex(graph), top_vertex(mesh)
+    x = np.random.default_rng(SEED).random(V).astype(np.float32)
+    lat, lon = default_labels(V)
+    perm = torch.randperm(V, generator=torch.Generator().manual_seed(
+        SEED)).numpy()
+    graphs = {"rmat": graph, "mesh": mesh}
+    t0 = time.perf_counter()
+    refs = distributed_refs(torch, graph, mesh, top, mtop, x, lat, lon, perm)
+    refs_s = time.perf_counter() - t0
+
+    t0, wall0 = time.perf_counter(), time.time()
+    info = spawn(run_cases, DIST_RANKS, graphs,
+                 distributed_cases(top, mtop, x, lat, lon, perm), dev.type,
+                 device=dev)
+    gloo_s = time.perf_counter() - t0
+    # the ranks' start (processes, imports, contexts, the graphs) and end
+    gloo_start_s = info["entered"] - wall0
+    gloo_end_s = time.time() - info["left"]
+    cases, launches = distributed_run(info, graphs, refs, DIST_RANKS, "gloo")
+    if info["staged"] != (dev.type == "cuda"):
+        raise AssertionError("four ranks on one card: collectives must go "
+                             "through the host")
+    if cases["mesh_bfs"]["mode"] != "halo":
+        raise AssertionError(f"the Delaunay mesh took "
+                             f"{cases['mesh_bfs']['mode']}, not halo")
+
+    t0 = time.perf_counter()
+    sole = [c for c in distributed_cases(top, mtop, x, lat, lon, perm)
+            if c["name"] in ("collectives", "round", "bfs_layouts",
+                             "sssp_layouts", "pagerank")]
+    info1 = spawn(run_cases, 1, {"rmat": graph}, sole, dev.type, device=dev)
+    nccl_s = time.perf_counter() - t0
+    cases1, launches1 = distributed_run(info1, graphs, refs, 1,
+                                        DIST_SOLE_BACKEND)
+    for k, v in launches1.items():
+        launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "rmat18.csr"
+    h = graph.host
+    Csr(V, V, h["row_offsets"], h["col_indices"], h["values"]).write_binary(
+        path)
+    clis = run_clis([
+        ["gunrock_tpu_torch.examples.bfs", "--market", str(path), "--src",
+         str(top), "--devices", str(DIST_RANKS), "--validate"],
+        ["gunrock_tpu_torch.examples.pr", "--market", str(path), "--devices",
+         str(DIST_RANKS), "--validate"]])
+    tmp.cleanup()
+    clis_s = time.perf_counter() - t0
+    return {
+        "ranks": DIST_RANKS, "backend": info["backend"],
+        "staged": info["staged"], "cases": cases,
+        "sole_rank": {"backend": info1["backend"], "cases": cases1},
+        "mesh_mode": cases["mesh_bfs"]["mode"],
+        "mesh_bytes_per_exchange": cases["mesh_bfs"]["bytes_per_exchange"],
+        "mesh_bytes_detail": [c for c in info["cases"]
+                              if c["name"] == "mesh_bfs"][0]["bytes_detail"],
+        "rmat_bytes_per_exchange": cases["bfs"]["bytes_per_exchange"],
+        "clis": clis, "launches": launches,
+        "seconds": {"single_device_refs": refs_s, "gloo_ranks": gloo_s,
+                    "gloo_rank_start": gloo_start_s,
+                    "gloo_rank_end": gloo_end_s,
+                    "nccl_rank": nccl_s, "clis": clis_s,
+                    "total": time.perf_counter() - t_start},
+        "name_power_limit": smi}
+
+
 def check_export(path: Path, name: str) -> dict:
     """The bfs CLI's metrics JSON: the reference's key set and schema, the
     card named in gpuinfo, mteps from the recorded times."""
@@ -3552,6 +3946,12 @@ def main() -> int:
     print(json.dumps({"async": asyncs}))
     seconds["async_path"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    distributed = distributed_path(torch, graph, smi)  # counts per rank
+    launches_dist = distributed["launches"]
+    print(json.dumps({"distributed": distributed}))
+    seconds["distributed_path"] = time.perf_counter() - t0
+
     # 4. the CLIs, validated against the CPU oracles (chesapeake is
     # symmetric, so the hits CLI takes the symmetric dense pass)
     t0 = time.perf_counter()
@@ -3608,7 +4008,8 @@ def main() -> int:
     table = [{"name": k, "launches": launches_bfs.get(k, 0)
               + launches_family.get(k, 0) + launches_frontier.get(k, 0)
               + launches_analysis.get(k, 0) + launches_measure.get(k, 0)
-              + launches_operators.get(k, 0) + launches_async.get(k, 0), **r}
+              + launches_operators.get(k, 0) + launches_async.get(k, 0)
+              + launches_dist.get(k, 0), **r}
              for k, r in rows.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

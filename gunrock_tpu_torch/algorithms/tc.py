@@ -214,6 +214,12 @@ def _search_steps(max_len: int) -> int:
     return max(1, int(np.ceil(np.log2(max(max_len, 2)))) + 1)
 
 
+def probe_chunk(max_dag_degree: int) -> int:
+    """DAG edges a chunk of the binary-search kernel takes: its [chunk, D]
+    work arrays bounded to ~2^22 lanes, the chunk kept in [128, 2^15]."""
+    return int(max(128, min((1 << 22) // max(max_dag_degree, 1), 1 << 15)))
+
+
 def tc_kernel(n_vertices: int, dag_offsets, dag_adj, edge_u, edge_v,
               max_dag_degree: int, chunk: int):
     """Batched wedge-check TC over DAG edges, ``chunk`` edges at a time:
@@ -392,12 +398,10 @@ def _run_probe(graph: Graph):
     dag_offsets, dag_adj, edge_u, edge_v, _ = _cached(
         graph, ("tc_dag",), lambda: build_dag(graph))
     D = int(np.diff(dag_offsets).max()) if dag_adj.size else 1
-    # bound a chunk's [chunk, D] work arrays to ~2^22 lanes
-    chunk = int(max(128, min((1 << 22) // max(D, 1), 1 << 15)))
     args = _cached(graph, ("tc_dag_dev",), lambda: tuple(
         torch.from_numpy(a).to(dev)
         for a in (dag_offsets, dag_adj, edge_u, edge_v)))
-    return lambda: tc_kernel(V, *args, D, chunk)
+    return lambda: tc_kernel(V, *args, D, probe_chunk(D))
 
 
 def run(

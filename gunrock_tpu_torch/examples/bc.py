@@ -5,7 +5,9 @@
 
 ``--all_sources`` accumulates BC over every source: through the batched
 SpMM kernel on the default (kernel) path, through the plain batched sweep
-with ``--advance_load_balance xla_segment``.
+with ``--advance_load_balance xla_segment``. ``--devices N`` runs the
+sharded Brandes pass from each source in N ranks (``--all_sources`` stays
+on one device).
 """
 
 from __future__ import annotations
@@ -38,10 +40,16 @@ def main(argv=None) -> int:
         sources = parse_source_string(params.sources, graph.n_vertices,
                                       params.num_runs)
         run_sources = runner.map_sources(params, sources)
-        for src in run_sources:
-            result = bc.run(graph, src, options=params.options,
-                            device=graph.device)
-            times.append(result.elapsed_ms)
+        out = runner.maybe_mesh(params, graph, "bc",
+                                [([src], {}) for src in run_sources])
+        if out is not None:
+            times, results = out
+            result = bc.Result(bc_values=results[-1], elapsed_ms=times[-1])
+        else:
+            for src in run_sources:
+                result = bc.run(graph, src, options=params.options,
+                                device=graph.device)
+                times.append(result.elapsed_ms)
         run_sources = run_sources[-1:]
     runner.print_head(runner.to_original(params, result.bc_values), name="bc")
     runner.finish(params, "bc", graph, times, srcs=sources)

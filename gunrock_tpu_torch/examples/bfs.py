@@ -5,7 +5,8 @@
 
 ``--mode async`` runs the Gauss-Seidel block sweeps
 (``experimental/async_sweep.py``; ``--ordering rcm`` relabels for
-near-monotone paths) instead of level-synchronous BFS.
+near-monotone paths) instead of level-synchronous BFS. ``--devices N``
+runs the vertex-sharded BFS in N ranks (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +42,18 @@ def main(argv=None) -> int:
     sources = parse_source_string(params.sources, graph.n_vertices,
                                   params.num_runs)
     run_sources = runner.map_sources(params, sources)
+    if params.extra.devices > 1 and params.extra.mode == "async":
+        print("Error: --mode async is single-chip; drop --devices")
+        return 1
     times, depths, result = [], [], None
-    if params.extra.mode == "async":
+    out = runner.maybe_mesh(params, graph, "bfs",
+                            [([src], {}) for src in run_sources])
+    if out is not None:
+        times, results = out
+        depths = [depth for _, depth in results]
+        result = bfs.Result(distances=results[-1][0], predecessors=None,
+                            search_depth=depths[-1], elapsed_ms=times[-1])
+    elif params.extra.mode == "async":
         from gunrock_tpu_torch.experimental.async_sweep import bfs_async
 
         for src in run_sources:

@@ -1,7 +1,11 @@
 """Coloring example CLI (role of reference examples/algorithms/color/color.cu).
 
     python -m gunrock_tpu_torch.examples.color --market datasets/chesapeake.mtx \\
-        --validate [--strategy auto|luby|rank|greedy] [--device cpu]
+        --validate [--strategy auto|luby|rank|greedy] [--device cpu] \\
+        [--devices N]
+
+With ``--devices N`` the sharded coloring runs in N ranks: the greedy one
+for ``auto`` and ``greedy``, Luby's otherwise.
 """
 
 from __future__ import annotations
@@ -25,11 +29,21 @@ def main(argv=None) -> int:
     ])
     graph, _ = runner.load(params)
     times, result = [], None
-    for i in range(params.num_runs):
-        result = color.run(graph, seed=i, options=params.options,
-                           strategy=params.extra.strategy,
-                           device=graph.device)
-        times.append(result.elapsed_ms)
+    greedy = params.extra.strategy in ("greedy", "auto")
+    out = runner.maybe_mesh(
+        params, graph, "color_greedy" if greedy else "color",
+        [([], {} if greedy else {"seed": i}) for i in range(params.num_runs)])
+    if out is not None:
+        times, results = out
+        colors, rounds = results[-1]
+        result = color.Result(colors=colors, iterations=rounds,
+                              elapsed_ms=times[-1])
+    else:
+        for i in range(params.num_runs):
+            result = color.run(graph, seed=i, options=params.options,
+                               strategy=params.extra.strategy,
+                               device=graph.device)
+            times.append(result.elapsed_ms)
     colors = to_numpy(result.colors)
     runner.print_head(runner.to_original(params, colors), name="colors")
     print(f"colors used: {int(colors.max()) + 1}, "

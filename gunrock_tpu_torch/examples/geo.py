@@ -7,7 +7,8 @@ examples/algorithms/geo/geo.cu).
 
 The reference example reads a labels file (``--labels``) with known
 lat/long per vertex; without one, a deterministic 10% of the vertices get
-random labels, so that the example runs on any graph.
+random labels, so that the example runs on any graph. ``--devices N``
+runs the sharded geolocation in N ranks.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 from gunrock_tpu_torch.algorithms import geo
 from gunrock_tpu_torch.examples import cpu_reference, runner
 from gunrock_tpu_torch.io.parameters import parse
+from gunrock_tpu_torch.utils.compare import to_numpy
 
 
 def load_labels(path: str, n_vertices: int):
@@ -73,21 +75,31 @@ def main(argv=None) -> int:
     lon = runner.to_relabeled(params, lon)
     times = []
     result = None
-    for _ in range(params.num_runs):
-        result = geo.run(graph, lat, lon,
-                         total_iterations=params.extra.total_iterations,
-                         spatial_iterations=params.extra.spatial_iterations,
-                         options=params.options, device=graph.device)
-        times.append(result.elapsed_ms)
-    located = int((~result.latitude.isnan()).sum())
+    out = runner.maybe_mesh(params, graph, "geo", [(
+        [lat, lon], {"total_iterations": params.extra.total_iterations,
+                     "spatial_iterations": params.extra.spatial_iterations})]
+        * params.num_runs)
+    if out is not None:
+        times, results = out
+        glat, glon = results[-1]
+        result = geo.Result(latitude=glat, longitude=glon,
+                            elapsed_ms=times[-1])
+    else:
+        for _ in range(params.num_runs):
+            result = geo.run(
+                graph, lat, lon,
+                total_iterations=params.extra.total_iterations,
+                spatial_iterations=params.extra.spatial_iterations,
+                options=params.options, device=graph.device)
+            times.append(result.elapsed_ms)
+    glat, glon = to_numpy(result.latitude), to_numpy(result.longitude)
+    located = int((~np.isnan(glat)).sum())
     print(f"located {located}/{V} vertices")
     runner.print_head(runner.to_original(params, result.latitude),
                       name="latitude")
     runner.finish(params, "geo", graph, times)
     if params.validate:
-        n = cpu_reference.geo_invariants(
-            graph, lat, lon, result.latitude.cpu().numpy(),
-            result.longitude.cpu().numpy())
+        n = cpu_reference.geo_invariants(graph, lat, lon, glat, glon)
         if n == 0:
             print("geo validation: PASSED")
         else:

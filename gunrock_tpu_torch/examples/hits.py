@@ -1,7 +1,7 @@
 """HITS example CLI (role of reference examples/algorithms/hits/hits.cu).
 
     python -m gunrock_tpu_torch.examples.hits --market datasets/chesapeake.mtx \\
-        --validate [--max_iterations 20] [--device cpu]
+        --validate [--max_iterations 20] [--device cpu] [--devices N]
 """
 
 from __future__ import annotations
@@ -19,10 +19,20 @@ def main(argv=None) -> int:
     ])
     graph, _ = runner.load(params)
     times, result = [], None
-    for _ in range(params.num_runs):
-        result = hits.run(graph, max_iterations=params.extra.max_iterations,
-                          options=params.options, device=graph.device)
-        times.append(result.elapsed_ms)
+    out = runner.maybe_mesh(params, graph, "hits", [
+        ([], {"max_iterations": params.extra.max_iterations})]
+        * params.num_runs)
+    if out is not None:
+        times, results = out
+        auth, hub, it = results[-1]
+        result = hits.Result(auth=auth, hub=hub, iterations=it,
+                             elapsed_ms=times[-1])
+    else:
+        for _ in range(params.num_runs):
+            result = hits.run(graph,
+                              max_iterations=params.extra.max_iterations,
+                              options=params.options, device=graph.device)
+            times.append(result.elapsed_ms)
     print(f"{result.iterations} iterations")
     runner.print_head(runner.to_original(params, result.auth), name="auth")
     runner.print_head(runner.to_original(params, result.hub), name="hub")

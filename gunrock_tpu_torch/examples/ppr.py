@@ -4,6 +4,7 @@
         --src 0 --validate [--alpha 0.15] [--epsilon 1e-6] [--device cpu]
 
 Several comma-separated seeds run as one batch (``ppr.run_batch``).
+``--devices N`` runs the sharded push from each seed in N ranks.
 """
 
 from __future__ import annotations
@@ -28,7 +29,16 @@ def main(argv=None) -> int:
                                 params.num_runs)
     run_seeds = runner.map_sources(params, seeds)
     times, depths = [], []
-    if len(run_seeds) > 1:
+    out = runner.maybe_mesh(params, graph, "ppr", [
+        ([seed], {"alpha": alpha, "epsilon": epsilon}) for seed in run_seeds])
+    if out is not None:
+        times, results = out
+        depths = [it for _, it in results]
+        p = results[-1][0]
+        print(f"{depths[-1]} iterations")
+        runner.print_head(runner.to_original(params, p), name="p")
+        p, run_seeds = p[None], run_seeds[-1:]
+    elif len(run_seeds) > 1:
         p, elapsed = ppr.run_batch(graph, run_seeds, alpha=alpha,
                                    epsilon=epsilon, device=graph.device)
         times.append(elapsed)

@@ -2,7 +2,10 @@
 
     python -m gunrock_tpu_torch.examples.pr --market datasets/chesapeake.mtx \\
         --validate [--alpha 0.85 | --alphas 0.8,0.85,0.9] [--tol 1e-6] \\
-        [--device cpu]
+        [--device cpu] [--devices N]
+
+``--devices N`` runs the vertex-sharded PageRank in N ranks
+(``parallel/sharded.py``); it and ``--alphas`` exclude each other.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ def main(argv=None) -> int:
     graph, _ = runner.load(params)
     tol = params.extra.tol
     if params.extra.alphas:
+        if params.extra.devices > 1:
+            print("Error: --alphas (batched single-chip sweep) and "
+                  "--devices are mutually exclusive")
+            return 1
         alphas = [float(a) for a in params.extra.alphas.split(",") if a]
         times, batch = [], None
         for _ in range(params.num_runs):
@@ -52,11 +59,19 @@ def main(argv=None) -> int:
         return 0
 
     times, depths, result = [], [], None
-    for _ in range(params.num_runs):
-        result = pr.run(graph, alpha=params.extra.alpha, tol=tol,
-                        options=params.options, device=graph.device)
-        times.append(result.elapsed_ms)
-        depths.append(result.iterations)
+    out = runner.maybe_mesh(params, graph, "pagerank", [
+        ([], {"alpha": params.extra.alpha, "tol": tol})] * params.num_runs)
+    if out is not None:
+        times, results = out
+        depths = [it for _, it in results]
+        p, it = results[-1]
+        result = pr.Result(p=p, iterations=it, elapsed_ms=times[-1])
+    else:
+        for _ in range(params.num_runs):
+            result = pr.run(graph, alpha=params.extra.alpha, tol=tol,
+                            options=params.options, device=graph.device)
+            times.append(result.elapsed_ms)
+            depths.append(result.iterations)
     print(f"{result.iterations} iterations")
     runner.print_head(runner.to_original(params, result.p), name="rank")
     work = dense_workload(graph, depths[-1])

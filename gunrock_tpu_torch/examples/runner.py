@@ -1,12 +1,15 @@
-"""Shared example scaffolding (the part of
-``gunrock_tpu/examples/runner.py`` the port's CLIs use): load the graph,
-map sources, inputs and results through an optional relabeling, report
-times and, under ``--export_metrics``, write the run's stats JSON
-(``utils/performance``), validate."""
+"""Shared example scaffolding (port of ``gunrock_tpu/examples/runner.py``):
+load the graph, map sources, inputs and results through an optional
+relabeling, report times and, under ``--export_metrics``, write the run's
+stats JSON (``utils/performance``), validate; and for ``--devices N > 1``
+run a CLI's sharded branch in N ranks (:func:`maybe_mesh`)."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import torch
 
 from gunrock_tpu_torch.io.loader import extract_filename, load_graph_file
 from gunrock_tpu_torch.io.parameters import Parameters
@@ -97,3 +100,52 @@ def validate(name: str, computed, reference, **kw) -> int:
     else:
         print(f"{name} validation: FAILED ({n} errors)")
     return n
+
+
+def timed_runs(n_runs: int, fn, device):
+    """Timed loop of the distributed calls: each run is fenced with
+    ``torch.cuda.synchronize`` on a card, so that the time covers the
+    work and not only its launch. Returns (times_ms, last result)."""
+    on_card = torch.device(device).type == "cuda"
+    times, out = [], None
+    for _ in range(n_runs):
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def maybe_mesh(params: Parameters, graph, algo: str, calls: list):
+    """For ``--devices N > 1``: run ``parallel.sharded.<algo>`` in N ranks,
+    one process a shard, once for each ``(args, kwargs)`` of ``calls``
+    (``algo(sg, *args, mesh, **kwargs)`` on the graph's partition;
+    ``tc_ring`` takes the graph itself), each run timed, through the rank
+    worker ``probes.mesh.run_cases``; return rank 0's (times_ms, results)
+    for this process to print and validate; None for one device. Prints
+    the backend and the ranks per card first."""
+    n = params.extra.devices
+    if n <= 1:
+        return None
+    from gunrock_tpu_torch.device import resolve
+    from gunrock_tpu_torch.parallel.mesh import backend_for, spawn
+    from gunrock_tpu_torch.probes.mesh import run_cases
+
+    dev = resolve(params.device)
+    backend = backend_for(dev, n)
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        where = (f"{-(-n // cards)} rank(s) per card on {min(n, cards)} "
+                 f"card(s)")
+        if backend == "gloo":
+            where += ", collectives staged through the host"
+    else:
+        where = "on the CPU"
+    print(f"distributed: {n} ranks, backend {backend}, {where}")
+    cases = [{"algo": algo, "graph": "g", "args": list(args),
+              "kwargs": kwargs} for args, kwargs in calls]
+    info = spawn(run_cases, n, {"g": graph}, cases, params.device,
+                 device=params.device)
+    return ([t for c in info["cases"] for t in c["ms"]],
+            [c["result"] for c in info["cases"]])

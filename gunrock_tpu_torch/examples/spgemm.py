@@ -4,7 +4,11 @@ examples/algorithms/spgemm/spgemm.cu): computes C = A.A (or A.B with
 
     python -m gunrock_tpu_torch.examples.spgemm \\
         --market datasets/chesapeake.mtx --validate \\
-        [--strategy esc|dense|auto] [--market_b B.mtx] [--device cpu]
+        [--strategy esc|dense|auto] [--market_b B.mtx] [--device cpu] \\
+        [--devices N]
+
+``--devices N`` runs the sharded count in N ranks: C's nnz and value
+checksum only, which ``--validate`` holds against scipy's product.
 """
 
 from __future__ import annotations
@@ -31,6 +35,24 @@ def main(argv=None) -> int:
     graph_b = (load_graph_file(params.extra.market_b,
                                device=params.device)[0]
                if params.extra.market_b else graph_a)
+    out = runner.maybe_mesh(params, graph_a, "spgemm_count",
+                            [([graph_b], {})] * params.num_runs)
+    if out is not None:
+        times, results = out
+        nnz, checksum = results[-1]
+        print(f"C nnz = {nnz}, value checksum {checksum:.6f} (distributed, "
+              "count only)")
+        runner.finish(params, "spgemm", graph_a, times)
+        if params.validate:
+            want = cpu_reference.spgemm(graph_a, graph_b)
+            want_sum = float(want.sum())
+            ok = nnz == want.count_nonzero() and abs(
+                checksum - want_sum) <= 1e-4 * max(1.0, abs(want_sum))
+            print(f"spgemm validation: {'PASSED' if ok else 'FAILED'} "
+                  f"(cpu nnz {want.count_nonzero()}, checksum {want_sum:.6f})")
+            if not ok:
+                return 1
+        return 0
     times = []
     result = None
     for _ in range(params.num_runs):

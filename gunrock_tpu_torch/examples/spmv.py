@@ -1,7 +1,7 @@
 """SpMV example CLI (role of reference examples/algorithms/spmv/spmv.cu).
 
     python -m gunrock_tpu_torch.examples.spmv --market datasets/chesapeake.mtx \\
-        --validate [--device cpu]
+        --validate [--device cpu] [--devices N]
 
 x is drawn from a seeded generator in input-id space and permuted into
 the execution space (the identity without ``--reorder``).
@@ -26,10 +26,16 @@ def main(argv=None) -> int:
     x = runner.to_relabeled(params,
                             rng.random(graph.n_vertices).astype(np.float32))
     times, result = [], None
-    for _ in range(params.num_runs):
-        result = spmv.run(graph, x, options=params.options,
-                          device=graph.device)
-        times.append(result.elapsed_ms)
+    out = runner.maybe_mesh(params, graph, "spmv",
+                            [([x], {})] * params.num_runs)
+    if out is not None:
+        times, results = out
+        result = spmv.Result(y=results[-1], elapsed_ms=times[-1])
+    else:
+        for _ in range(params.num_runs):
+            result = spmv.run(graph, x, options=params.options,
+                              device=graph.device)
+            times.append(result.elapsed_ms)
     runner.print_head(runner.to_original(params, result.y), name="y")
     work = dense_workload(graph, 1)
     runner.finish(params, "spmv", graph, times,

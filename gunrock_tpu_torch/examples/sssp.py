@@ -6,6 +6,8 @@
 ``--mode async`` runs the Gauss-Seidel block sweeps
 (``experimental/async_sweep.py``; ``--ordering rcm`` relabels for
 near-monotone paths) instead of the level/bucket-synchronous search.
+``--devices N`` runs the vertex-sharded Bellman-Ford in N ranks
+(``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -39,8 +41,18 @@ def main(argv=None) -> int:
     sources = parse_source_string(params.sources, graph.n_vertices,
                                   params.num_runs)
     run_sources = runner.map_sources(params, sources)
+    if params.extra.devices > 1 and params.extra.mode == "async":
+        print("Error: --mode async is single-chip; drop --devices")
+        return 1
     times, depths, result = [], [], None
-    if params.extra.mode == "async":
+    out = runner.maybe_mesh(params, graph, "sssp",
+                            [([src], {}) for src in run_sources])
+    if out is not None:
+        times, results = out
+        depths = [depth for _, depth in results]
+        result = sssp.Result(distances=results[-1][0], predecessors=None,
+                             search_depth=depths[-1], elapsed_ms=times[-1])
+    elif params.extra.mode == "async":
         from gunrock_tpu_torch.experimental.async_sweep import sssp_async
 
         for src in run_sources:

@@ -1,7 +1,9 @@
 """TC example CLI (role of reference examples/algorithms/tc/tc.cu).
 
     python -m gunrock_tpu_torch.examples.tc --market datasets/chesapeake.mtx \\
-        --validate [-r] [--device cpu]
+        --validate [-r] [--device cpu] [--devices N]
+
+``--devices N`` runs the ring-rotation sharded count in N ranks.
 """
 
 from __future__ import annotations
@@ -24,9 +26,19 @@ def main(argv=None) -> int:
     graph, _ = runner.load(params)
     times = []
     result = None
-    for _ in range(params.num_runs):
-        result = tc.run(graph, options=params.options, device=graph.device)
-        times.append(result.elapsed_ms)
+    out = runner.maybe_mesh(params, graph, "tc_ring",
+                            [([], {})] * params.num_runs)
+    if out is not None:
+        times, results = out
+        counts, total = results[-1]
+        result = tc.Result(vertex_triangles_count=counts,
+                           total_triangles_count=total,
+                           n_triangles=total // 3, elapsed_ms=times[-1])
+    else:
+        for _ in range(params.num_runs):
+            result = tc.run(graph, options=params.options,
+                            device=graph.device)
+            times.append(result.elapsed_ms)
     runner.print_head(
         runner.to_original(params, result.vertex_triangles_count),
         name="triangles")

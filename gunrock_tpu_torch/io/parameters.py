@@ -88,8 +88,8 @@ def build_parser(algorithm: str, extra_args=None) -> argparse.ArgumentParser:
                    "hub-first degree sort); --src ids and printed results "
                    "stay in the input id space")
     p.add_argument("--devices", type=int, default=0,
-                   help="multi-device run: not ported yet (the JAX "
-                   "package's parallel/ layer); 0/1 = one device")
+                   help="number of ranks of a distributed run (one process "
+                   "a vertex shard, parallel/); 0/1 = one device")
     if algorithm in _SOURCED:
         p.add_argument("-s", "--src", default="",
                        help="source(s), comma-separated; random if omitted")
@@ -127,9 +127,6 @@ def parse_tag_string(tag_str: str) -> list[str]:
 def parse(algorithm: str, argv=None, extra_args=None) -> Parameters:
     parser = build_parser(algorithm, extra_args)
     ns = parser.parse_args(argv)
-    if ns.devices > 1:
-        parser.error("--devices: the multi-device layer (the JAX package's "
-                     "parallel/) is not ported yet; run on one device")
     auto = default_options()
     options = Options(
         load_balance=auto.load_balance

@@ -10,7 +10,8 @@ time.
     python -m gunrock_tpu_torch.probes.pull     [--sweep 4,8,16,32]
 
 (``pull`` has no TPU counterpart: it times the semiring pull's span
-kernels, B1 and B3, and sweeps the span length.)
+kernels, B1 and B3, and sweeps the span length. ``mesh`` is no driver:
+it holds the distributed layer's rank worker, ``run_cases``.)
 
 Each runs on the card (``--device cuda``, the default; it raises without
 one) and runs every variant in one process: the JAX drivers' one

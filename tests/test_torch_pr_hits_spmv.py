@@ -261,14 +261,14 @@ def test_cli_validates_on_cpu(cli, extra, capsys):
 
 
 def test_cli_unported_paths_exit_with_an_error(capsys):
-    """--devices (the distributed layer) is not ported yet; --mode async,
-    once unported too, now runs (tests/test_torch_async_sweep.py)."""
+    """--mode async and --devices, once unported, both run now
+    (tests/test_torch_async_sweep.py, tests/test_torch_parallel.py); the
+    two together exit with the JAX CLI's error."""
     argv = ["--market", CHESAPEAKE, "--device", "cpu", "--src", "0"]
     assert sssp_cli.main(argv + ["--mode", "async", "--validate"]) == 0
     assert "not ported" not in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        sssp_cli.main(argv + ["--devices", "4"])
-    assert "not ported" in capsys.readouterr().err
+    assert sssp_cli.main(argv + ["--devices", "4", "--mode", "async"]) == 1
+    assert "--mode async is single-chip" in capsys.readouterr().out
 
 
 def test_interop_fills_and_runs():
