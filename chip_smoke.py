@@ -124,7 +124,18 @@ Phases, each raising on failure:
       single-device port's on the card, each collective against numpy,
       and each layout case's kernels must launch in every rank (the
       launches, summed over ranks, join the kernel table); then the bfs
-      and pr CLIs with ``--devices 4 --validate`` on the R-MAT graph.
+      and pr CLIs with ``--devices 4 --validate`` on the R-MAT graph;
+   i. graph loading through the native host IO (``_native/``, host C++
+      built with ``c++``; the phase fails without it): the R-MAT graph
+      before ``degree_sort`` written as a ``real general`` .mtx and its
+      symmetrized edges as a ``pattern symmetric`` one, each loaded onto
+      the card by ``load_graph_file`` through the native parse and sort
+      (``_native.CALLS`` must grow) and through numpy's, every Graph
+      array bit-equal between the two and, for the general file, with
+      ``rmat_graph``'s; the parse, each sort and the host-to-device copies
+      timed, and the setup (``rmat_graph`` + ``degree_sort``) both ways;
+      then bfs and sssp ``--validate`` on the general file and bfs on the
+      symmetric one.
 4. CLIs: bfs (twice; the first also with ``--export_metrics``, whose JSON
    is checked: the reference's keys, the card in ``gpuinfo``), sssp, pr,
    hits, spmv, color, mst, kcore, ppr, bc (one source, all sources), tc,
@@ -144,7 +155,9 @@ and a ``{"measurement": ...}`` line, an ``{"operators": ...}`` line, an
 ms, idle share and bound), a ``{"distributed": ...}`` line (per sharded
 case the wall ms of a run beside the single-device ms, the exchange mode
 and bytes, the backend, each rank's launches of the layout cases, the
-phase's seconds), an
+phase's seconds), an ``{"ingest": ...}`` line (the files' sizes, each
+load's pieces in seconds on both paths, the setup both ways, the CLIs'
+lines, the phase's seconds), an
 ``{"export": ...}`` line, a ``{"regression_battery": ...}`` line with
 each family's seconds, the seconds of each phase, then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without a CUDA
@@ -158,6 +171,7 @@ stands in where no sanitizer runs.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3707,6 +3721,210 @@ def distributed_path(torch, graph, smi: str) -> dict:
         "name_power_limit": smi}
 
 
+def write_mtx(path: Path, banner: str, n: int, rows, cols, vals=None) -> float:
+    """Write 0-based entries as a 1-based .mtx in slices of 2^18 lines; a
+    value as %.9g, which carries a float32 exactly through its decimal
+    form. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {banner}\n"
+                f"{n} {n} {len(rows)}\n")
+        step = 1 << 18
+        for i in range(0, len(rows), step):
+            cells = [(rows[i:i + step] + 1).tolist(),
+                     (cols[i:i + step] + 1).tolist()]
+            if vals is not None:
+                cells.append(vals[i:i + step].astype("float64").tolist())
+            line = " ".join(["%d", "%d", "%.9g"][:len(cells)]) + "\n"
+            flat = [x for entry in zip(*cells) for x in entry]
+            f.write((line * len(cells[0])) % tuple(flat))
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def native_io(on: bool):
+    """The port's graph loading with its native parse and sort (``on``) or
+    with numpy's: ``_load_native`` switched off and the sort threshold
+    above any graph."""
+    from gunrock_tpu_torch.formats import formats
+    from gunrock_tpu_torch.io import matrix_market as mm
+
+    saved = mm._load_native, formats.NATIVE_SORT_MIN_EDGES
+    if not on:
+        mm._load_native = lambda path: None
+        formats.NATIVE_SORT_MIN_EDGES = 1 << 62
+    try:
+        yield
+    finally:
+        mm._load_native, formats.NATIVE_SORT_MIN_EDGES = saved
+
+
+@contextlib.contextmanager
+def timed_pieces(sync, times: dict):
+    """Time the pieces of a graph load as it runs: the parse
+    (``load_matrix_market``), each sort (``_counting_sort_to_compressed``)
+    and the host-to-device copies (``Graph.from_arrays``, synchronised)."""
+    from gunrock_tpu_torch.formats import formats
+    from gunrock_tpu_torch.graph.graph import Graph
+    from gunrock_tpu_torch.io import matrix_market as mm
+
+    sort, parse = formats._counting_sort_to_compressed, mm.load_matrix_market
+    from_arrays = Graph.__dict__["from_arrays"]
+
+    def timed(key, fn, with_sync=False):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if with_sync:
+                sync()
+            times.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return run
+
+    formats._counting_sort_to_compressed = timed("sort_s", sort)
+    mm.load_matrix_market = timed("parse_s", parse)
+    Graph.from_arrays = classmethod(timed("h2d_s", from_arrays.__func__, True))
+    try:
+        yield
+    finally:
+        formats._counting_sort_to_compressed = sort
+        mm.load_matrix_market = parse
+        Graph.from_arrays = from_arrays
+
+
+def assert_same_graph(torch, what: str, a, b) -> None:
+    """Every array of two Graphs equal bit for bit, on the card."""
+    from gunrock_tpu_torch.graph.graph import ARRAYS
+
+    if (a.n_vertices, a.n_edges, a.properties) != (b.n_vertices, b.n_edges,
+                                                   b.properties):
+        raise AssertionError(f"{what}: {a.n_vertices} vertices, {a.n_edges} "
+                             f"edges, {a.properties} against {b.n_vertices}, "
+                             f"{b.n_edges}, {b.properties}")
+    for name in ARRAYS:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.dtype != y.dtype or x.device != y.device or not torch.equal(x, y):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def ingest_path(torch, smi: str, device: str = "cuda") -> dict:
+    """Phase 3i, graph loading through the native host IO
+    (``gunrock_tpu_torch/_native``): the main path's R-MAT graph before
+    ``degree_sort`` written as a ``real general`` .mtx, and its
+    symmetrized edges as a ``pattern symmetric`` one (the lower triangle,
+    which the format stores); each loaded onto the card by
+    ``load_graph_file`` through the native parse and sort and through
+    numpy's, every Graph array bit-equal between the two and, for the
+    general file, with ``rmat_graph``'s; the pieces of each load timed;
+    the main path's setup timed both ways; then the bfs and sssp CLIs on
+    the general file and bfs on the symmetric one with ``--validate``.
+    Fails if the native library is unavailable: the card's machine has a
+    C++ compiler. ``device="cpu"`` rehearses the phase without a card."""
+    import numpy as np
+
+    from gunrock_tpu_torch import _native
+    from gunrock_tpu_torch.graph.reorder import degree_sort
+    from gunrock_tpu_torch.io.generators import rmat_graph
+    from gunrock_tpu_torch.io.loader import load_graph_file
+
+    t_start = time.perf_counter()
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    if not _native.available():
+        raise AssertionError("ingest: no native library (no C++ compiler)")
+    setup, made = {}, {}
+    for mode in ("native", "numpy"):
+        times = {}
+        with native_io(mode == "native"), timed_pieces(sync, times):
+            calls = sum(_native.CALLS.values())
+            t0 = time.perf_counter()
+            g = rmat_graph(SCALE, EDGE_FACTOR, seed=SEED, device=device)
+            sync()
+            t1 = time.perf_counter()
+            sorted_g, _ = degree_sort(g)
+            sync()
+            t2 = time.perf_counter()
+        setup[mode] = {"rmat_graph_s": t1 - t0, "degree_sort_s": t2 - t1,
+                       "total_s": t2 - t0, **times,
+                       "native_calls": sum(_native.CALLS.values()) - calls}
+        made[mode] = g, sorted_g
+    if setup["native"]["native_calls"] == 0 or setup["numpy"]["native_calls"]:
+        raise AssertionError(f"ingest: setup took the wrong sort: {setup}")
+    assert_same_graph(torch, "rmat_graph native/numpy", made["native"][0],
+                      made["numpy"][0])
+    assert_same_graph(torch, "degree_sort native/numpy", made["native"][1],
+                      made["numpy"][1])
+    rmat = made["native"][0]
+    del made
+
+    tmp = tempfile.TemporaryDirectory()
+    V = rmat.n_vertices
+    src, dst = rmat.host["edge_src"], rmat.host["col_indices"]
+    general = Path(tmp.name) / "rmat18.mtx"
+    symmetric = Path(tmp.name) / "rmat18_sym.mtx"
+    keep = src != dst
+    pairs = np.unique(np.maximum(src[keep], dst[keep]).astype(np.int64) * V
+                      + np.minimum(src[keep], dst[keep]))
+    files = {
+        "general": {"write_s": write_mtx(general, "real general", V, src, dst,
+                                         rmat.host["values"]),
+                    "entries": int(src.size)},
+        "symmetric": {"write_s": write_mtx(symmetric, "pattern symmetric", V,
+                                           pairs // V, pairs % V),
+                      "entries": int(pairs.size)},
+    }
+    out = {"files": files}
+    for key, path in (("general", general), ("symmetric", symmetric)):
+        files[key]["bytes"] = path.stat().st_size
+        runs = {}
+        for mode in ("native", "python"):
+            times = {}
+            calls = dict(_native.CALLS)
+            with native_io(mode == "native"), timed_pieces(sync, times):
+                sync()
+                t0 = time.perf_counter()
+                g, _ = load_graph_file(path, device=device)
+                sync()
+                times["total_s"] = time.perf_counter() - t0
+            times["native_calls"] = {k: v - calls.get(k, 0)
+                                     for k, v in _native.CALLS.items()}
+            runs[mode] = g
+            out.setdefault(key, {})[mode] = times
+        took = out[key]["native"]["native_calls"]
+        if not (took.get("parse_mtx") and took.get("coo_to_compressed")) or any(
+                out[key]["python"]["native_calls"].values()):
+            raise AssertionError(f"ingest {key}: wrong path taken: {out[key]}")
+        assert_same_graph(torch, f"{key} .mtx native/python", runs["native"],
+                          runs["python"])
+        if key == "general":
+            assert_same_graph(torch, "general .mtx/rmat_graph", runs["native"],
+                              rmat)
+        out[key]["n_vertices"] = runs["native"].n_vertices
+        out[key]["n_edges"] = runs["native"].n_edges
+        del runs
+
+    t0 = time.perf_counter()
+    on = ["--validate"] + (["--device", "cpu"] if device == "cpu" else [])
+    lines = run_clis([
+        ["gunrock_tpu_torch.examples.bfs", "--market", str(general), "--src",
+         "0", *on],
+        ["gunrock_tpu_torch.examples.sssp", "--market", str(general), "--src",
+         "0", *on],
+        ["gunrock_tpu_torch.examples.bfs", "--market", str(symmetric), "--src",
+         "0", *on],
+    ])
+    if not all(line.endswith("validation: PASSED") for line in lines):
+        raise AssertionError(f"ingest CLIs: {lines}")
+    out["clis"] = lines
+    out["clis_s"] = time.perf_counter() - t0
+    tmp.cleanup()
+    out["setup"] = setup
+    out["seconds"] = time.perf_counter() - t_start
+    out["name_power_limit"] = smi
+    return out
+
+
 def check_export(path: Path, name: str) -> dict:
     """The bfs CLI's metrics JSON: the reference's key set and schema, the
     card named in gpuinfo, mteps from the recorded times."""
@@ -3951,6 +4169,10 @@ def main() -> int:
     launches_dist = distributed["launches"]
     print(json.dumps({"distributed": distributed}))
     seconds["distributed_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    print(json.dumps({"ingest": ingest_path(torch, smi)}))
+    seconds["ingest_path"] = time.perf_counter() - t0
 
     # 4. the CLIs, validated against the CPU oracles (chesapeake is
     # symmetric, so the hits CLI takes the symmetric dense pass)

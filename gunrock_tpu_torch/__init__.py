@@ -10,7 +10,11 @@ they raise. ``device="cpu"`` runs every kernel's plain PyTorch version.
 
 Layout (mirrors ``gunrock_tpu``):
 
-- ``formats``     — host CSR/COO/CSC containers and conversions (numpy)
+- ``formats``     — host CSR/COO/CSC containers and conversions (numpy;
+                    the counting sort native from 2^16 edges)
+- ``_native``     — host C++ (``fast_io.cpp``, built with the host's C++
+                    compiler at first use): the mmap .mtx parser and the
+                    counting sort
 - ``graph``       — the device Graph, ``build_graph``, ``degree_sort``
 - ``io``          — Matrix Market / binary CSR loading, generators, sample
                     graphs, CLI flags

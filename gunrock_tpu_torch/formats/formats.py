@@ -2,9 +2,11 @@
 
 Numpy copy of ``gunrock_tpu/formats/formats.py``: ``Coo``/``Csr``/``Csc``
 containers, counting-sort conversions that keep every row segment sorted
-by the minor index, and the binary CSR cache. The port has no native C++
-counting sort yet; ``np.lexsort`` gives the same order (rows sorted by
-(major, minor), stable for duplicates).
+by the minor index, and the binary CSR cache. From
+``NATIVE_SORT_MIN_EDGES`` edges up the sort is the native counting sort
+(``gunrock_tpu_torch/_native``) when a C++ compiler builds it, below that
+or without one ``np.lexsort``: the same order either way (rows sorted by
+(major, minor), stable for duplicates), and the same arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+
+from gunrock_tpu_torch import _native
 
 _BINARY_MAGIC = b"GTPUCSR1"  # same cache format as the JAX package
 
@@ -83,11 +87,39 @@ class Csc:
         return int(self.row_indices.shape[0])
 
 
+NATIVE_SORT_MIN_EDGES = 1 << 16
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+def _native_sort(major, minor, values, n_major: int):
+    """The native counting sort's result in the numpy path's dtypes; None
+    without a compiler or where an index lies outside what it sorts (the
+    numpy path then gives its own result or error)."""
+    if not major.size:
+        return None
+    n_minor = int(minor.max()) + 1
+    if not (0 <= int(major.min()) and int(major.max()) < n_major <= _INT32_MAX
+            and 0 <= int(minor.min()) and n_minor <= _INT32_MAX):
+        return None
+    out = _native.coo_to_compressed(major, minor, values, n_major, n_minor)
+    if out is None:
+        return None
+    offsets, minor_out, vals_out, perm = out
+    if values.dtype != np.float32:
+        vals_out = values[perm]
+    dtype = np.int32 if offsets[-1] <= _INT32_MAX else np.int64
+    return offsets.astype(dtype), minor_out, vals_out, perm
+
+
 def _counting_sort_to_compressed(major, minor, values, n_major: int):
     """Sort edges by (major, minor) and build offsets.
 
     Returns (offsets int32[n_major+1], minor_sorted, values_sorted, perm)
     where ``perm`` maps sorted position -> original edge index."""
+    if major.shape[0] >= NATIVE_SORT_MIN_EDGES:
+        out = _native_sort(major, minor, values, n_major)
+        if out is not None:
+            return out
     perm = np.lexsort((minor, major))  # stable; last key is primary
     counts = np.bincount(major[perm], minlength=n_major)
     offsets = np.concatenate(

@@ -65,9 +65,17 @@ __all__ = [
     "ShardedGraph", "ShardedLayouts", "UNREACHED", "bc", "bfs",
     "build_sharded_layouts", "collective_bytes_detail",
     "collective_bytes_per_exchange", "color", "color_greedy", "geo", "hits",
-    "kcore", "mst", "pagerank", "partition_sharded", "ppr",
+    "kcore", "mesh_axes", "mst", "pagerank", "partition_sharded", "ppr",
     "spgemm_count", "spmv", "sssp", "tc_ring",
 ]
+
+
+def mesh_axes(mesh):
+    """The vertex-shard axis spec of ``mesh``: its one axis name on a flat
+    mesh, the ordered tuple of names on a (host, chip) mesh, whose shard
+    ids run host-major."""
+    names = tuple(mesh.axis_names)
+    return names if len(names) > 1 else names[0]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -313,8 +313,8 @@ def test_algorithm_modules_under_both_packages(name):
 
 def test_fresh_import_exports_and_pulls_in_no_jax():
     """A fresh import of the package, of the operator layer's modules and
-    of the async sweep, the .smtx loader and the error helpers loads no
-    jax and nothing of gunrock_tpu."""
+    of the async sweep, the .smtx loader, the error helpers and the native
+    IO loads no jax and nothing of gunrock_tpu."""
     code = (
         "import sys, gunrock_tpu_torch as g\n"
         "import gunrock_tpu_torch.ops, gunrock_tpu_torch.framework.frontier\n"
@@ -322,6 +322,7 @@ def test_fresh_import_exports_and_pulls_in_no_jax():
         "import gunrock_tpu_torch.ops.search, gunrock_tpu_torch.ops.random\n"
         "import gunrock_tpu_torch.experimental.async_sweep, gunrock_tpu_torch.io.smtx\n"
         "import gunrock_tpu_torch.utils.error, gunrock_tpu_torch.ops.kernels.async_sweep\n"
+        "import gunrock_tpu_torch._native\n"
         "missing = [n for n in ('bc_run', 'geo_run', 'spgemm_run', 'tc_run',"
         " 'algorithms') if not hasattr(g, n)]\n"
         f"missing += [n for n in {ALGORITHMS!r} if not hasattr(g.algorithms, n)]\n"
