@@ -135,7 +135,18 @@ Phases, each raising on failure:
       ``rmat_graph``'s; the parse, each sort and the host-to-device copies
       timed, and the setup (``rmat_graph`` + ``degree_sort``) both ways;
       then bfs and sssp ``--validate`` on the general file and bfs on the
-      symmetric one.
+      symmetric one;
+   j. Graph's accessors and degree statistics, batched on the card over
+      the R-MAT graph and the symmetrized loop-free graph that triangle
+      counting counts on, each against numpy on the host arrays: the
+      counts and degrees of every vertex, the source of every edge,
+      ``get_edge`` of every edge and as many seeded pairs, the
+      intersection count of every undirected edge (summing to 3 x
+      ``tc.run``'s triangles) and of 10,000 sampled and 32 top-degree
+      pairs, ``intersect_neighbors`` of the two top hubs, the average
+      degree and its deviation (rtol 1e-5 of numpy's float64), the degree
+      histogram bin for bin (also at degrees around every power of two up
+      to 2^16), and ``Timer.end(x)`` on a CUDA tensor.
 4. CLIs: bfs (twice; the first also with ``--export_metrics``, whose JSON
    is checked: the reference's keys, the card in ``gpuinfo``), sssp, pr,
    hits, spmv, color, mst, kcore, ppr, bc (one source, all sources), tc,
@@ -157,7 +168,9 @@ case the wall ms of a run beside the single-device ms, the exchange mode
 and bytes, the backend, each rank's launches of the layout cases, the
 phase's seconds), an ``{"ingest": ...}`` line (the files' sizes, each
 load's pieces in seconds on both paths, the setup both ways, the CLIs'
-lines, the phase's seconds), an
+lines, the phase's seconds), a ``{"graph_accessors": ...}`` line (the
+wall ms of each batched call, the intersection pass's products, blocks and
+peak bytes, the statistics), an
 ``{"export": ...}`` line, a ``{"regression_battery": ...}`` line with
 each family's seconds, the seconds of each phase, then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without a CUDA
@@ -3925,6 +3938,256 @@ def ingest_path(torch, smi: str, device: str = "cuda") -> dict:
     return out
 
 
+def symmetric_loopfree(graph):
+    """The undirected simple graph that triangle counting counts on
+    (``tc._symmetrized_edges``, self loops dropped), built on the graph's
+    device."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import tc
+    from gunrock_tpu_torch.formats import Coo
+    from gunrock_tpu_torch.graph import GraphProperties, build_graph
+
+    src, dst, _ = tc._symmetrized_edges(graph)
+    keep = src != dst
+    src, dst = src[keep].astype(np.int32), dst[keep].astype(np.int32)
+    V = graph.n_vertices
+    return build_graph(Coo(V, V, src, dst, np.ones(src.size, np.float32)),
+                       GraphProperties(directed=False, symmetric=True),
+                       device=graph.device)
+
+
+def intersection_oracle(offsets, cols, u, v) -> np.ndarray:
+    """JAX's count for each pair: the entries of the smaller row (u's on a
+    tie) found in the other row, repeats counted."""
+    import numpy as np
+
+    out = np.empty(len(u), np.int64)
+    for i, (a, b) in enumerate(zip(u.tolist(), v.tolist())):
+        ra, rb = (cols[offsets[x]:offsets[x + 1]] for x in (a, b))
+        small, big = (ra, rb) if ra.size <= rb.size else (rb, ra)
+        out[i] = int(np.isin(small, big).sum())
+    return out
+
+
+def graph_accessors_path(torch, graph, smi: str) -> dict:
+    """Phase 3j, Graph's accessors and degree statistics on the graph's
+    device, batched over the whole graph, each checked against numpy on
+    the host arrays: the counts and degrees of every vertex, the source of
+    every edge, ``get_edge`` of every edge and as many seeded pairs, the
+    intersection count of every undirected edge of the symmetrized
+    loop-free graph (their sum is 3 x ``tc.run``'s triangles) and of
+    sampled and top-degree pairs, ``intersect_neighbors`` of the two top
+    hubs, the three statistics, the histogram at degrees around every
+    power of two up to 2^16, and ``Timer.end(x)``. Returns the phase's
+    summary line."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import tc
+    from gunrock_tpu_torch.formats import Coo
+    from gunrock_tpu_torch.graph import Graph, GraphProperties, build_graph
+    from gunrock_tpu_torch.graph import graph as graph_module
+    from gunrock_tpu_torch.utils.timer import Timer
+
+    dev = graph.device
+    cuda = dev.type == "cuda"
+    V, E = graph.n_vertices, graph.n_edges
+    h = graph.host
+    ro, cols = h["row_offsets"], h["col_indices"]
+    rng = np.random.default_rng(SEED)
+    ms = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def call(name, fn):
+        """fn() once to warm up, then once timed (wall ms, synchronised)."""
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        if isinstance(out, torch.Tensor) and out.device != dev:
+            raise AssertionError(f"{name}: result on {out.device}, not {dev}")
+        return out
+
+    def equal(what, got, want):
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        want = np.asarray(want)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            bad = np.flatnonzero(got.ravel() != want.ravel())[:5] \
+                if got.shape == want.shape else "shape"
+            raise AssertionError(f"graph accessors: {what} differs from "
+                                 f"numpy at {bad}")
+
+    # counts and degrees of every vertex, the source of every edge
+    if (graph.get_number_of_vertices(), graph.get_number_of_edges()) != (V, E):
+        raise AssertionError("graph accessors: vertex or edge count")
+    vs = torch.arange(V, device=dev)
+    es = torch.arange(E, device=dev)
+    equal("get_number_of_neighbors", call(
+        "get_number_of_neighbors", lambda: graph.get_number_of_neighbors(vs)),
+        np.diff(ro))
+    equal("get_in_degree", call("get_in_degree",
+                                lambda: graph.get_in_degree(vs)),
+          np.diff(h["csc_offsets"]))
+    equal("in_degrees", call("in_degrees", graph.in_degrees),
+          np.diff(h["csc_offsets"]))
+    equal("get_starting_edge", call(
+        "get_starting_edge", lambda: graph.get_starting_edge(vs)), ro[:-1])
+    equal("get_source_vertex", call(
+        "get_source_vertex", lambda: graph.get_source_vertex(es)),
+        h["edge_src"])
+    equal("get_destination_vertex", call(
+        "get_destination_vertex", lambda: graph.get_destination_vertex(es)),
+        cols)
+    equal("get_edge_weight", call(
+        "get_edge_weight", lambda: graph.get_edge_weight(es)), h["values"])
+
+    # get_edge: every edge, and as many seeded pairs
+    u = np.concatenate([h["edge_src"], rng.integers(0, V, E)]).astype(np.int32)
+    v = np.concatenate([cols, rng.integers(0, V, E)]).astype(np.int32)
+    keys = h["edge_src"].astype(np.int64) * V + cols
+    q = u.astype(np.int64) * V + v
+    pos = np.searchsorted(keys, q)
+    found = (pos < E) & (keys[np.minimum(pos, E - 1)] == q)
+    tu, tv = torch.from_numpy(u).to(dev), torch.from_numpy(v).to(dev)
+    equal("get_edge", call("get_edge", lambda: graph.get_edge(tu, tv)),
+          np.where(found, pos, -1))
+    pairs_found = int(found[E:].sum())
+
+    # intersection counts: every undirected edge {u < v} of the symmetrized
+    # loop-free graph sums to 3 x the triangles
+    t0 = time.perf_counter()
+    sym = symmetric_loopfree(graph)
+    sym_s = time.perf_counter() - t0
+    sh = sym.host
+    upper = sh["edge_src"] < sh["col_indices"]
+    eu = torch.from_numpy(sh["edge_src"][upper]).to(dev)
+    ev = torch.from_numpy(sh["col_indices"][upper]).to(dev)
+    sdeg = np.diff(sh["row_offsets"]).astype(np.int64)
+    products = int(np.minimum(sdeg[sh["edge_src"][upper]],
+                              sdeg[sh["col_indices"][upper]]).sum())
+    if cuda:
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    counts = call("get_intersection_count",
+                  lambda: sym.get_intersection_count(eu, ev))
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    total = int(counts.sum(dtype=torch.int64))
+    triangles = tc.run(graph, device=dev).n_triangles
+    if total != 3 * triangles:
+        raise AssertionError(f"graph accessors: intersection counts over the "
+                             f"undirected edges sum to {total}, not 3 x "
+                             f"{triangles} triangles")
+    # sampled and top-degree pairs against the numpy oracle, on the
+    # symmetric graph and on the directed one
+    top = np.argsort(-sdeg, kind="stable")[:33]
+    su = np.concatenate([rng.integers(0, V, 10_000), top[:-1]])
+    sv = np.concatenate([rng.integers(0, V, 10_000), top[1:]])
+    for what, g in (("symmetric", sym), ("directed", graph)):
+        gh = g.host
+        got = g.get_intersection_count(torch.from_numpy(su).to(dev),
+                                       torch.from_numpy(sv).to(dev))
+        equal(f"get_intersection_count ({what}, sampled and top pairs)", got,
+              intersection_oracle(gh["row_offsets"], gh["col_indices"], su, sv))
+
+    # intersect_neighbors of the two top hubs: count and id sum
+    a, b = int(top[0]), int(top[1])
+    common = np.intersect1d(sh["col_indices"][sh["row_offsets"][a]:
+                                              sh["row_offsets"][a + 1]],
+                            sh["col_indices"][sh["row_offsets"][b]:
+                                              sh["row_offsets"][b + 1]])
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    n_common = call("intersect_neighbors_count", lambda: sym.intersect_neighbors(
+        a, b, lambda acc, y: acc + 1, zero))
+    id_sum = call("intersect_neighbors_sum", lambda: sym.intersect_neighbors(
+        a, b, lambda acc, y: acc + y, zero))
+    if (int(n_common), int(id_sum)) != (common.size, int(common.sum())):
+        raise AssertionError(f"graph accessors: hubs {a}, {b} have "
+                             f"{common.size} common neighbours summing to "
+                             f"{int(common.sum())}; intersect_neighbors gives "
+                             f"{int(n_common)} and {int(id_sum)}")
+
+    # the statistics against numpy's float64 values
+    d = np.diff(ro).astype(np.float64)
+    stats = {}
+    for name, want in (("get_average_degree", d.mean()),
+                       ("get_degree_standard_deviation", d.std())):
+        got = call(name, getattr(graph, name))
+        if got.dtype != torch.float32 or got.device != dev:
+            raise AssertionError(f"graph accessors: {name} is {got.dtype} on "
+                                 f"{got.device}")
+        stats[name] = float(got)
+        if abs(stats[name] - want) > 1e-5 * abs(want):
+            raise AssertionError(f"graph accessors: {name} {stats[name]} "
+                                 f"against numpy's {want}")
+
+    def histogram(deg):
+        bins = np.where(deg > 0, np.ceil(np.log2(
+            deg.astype(np.float32).astype(np.float64) + 1)), 0)
+        return np.bincount(bins.astype(np.int64), minlength=33)
+
+    hist = call("build_degree_histogram", graph.build_degree_histogram)
+    equal("build_degree_histogram", hist, histogram(np.diff(ro)))
+    # and at degrees 0-4 and 2^k - 1, 2^k, 2^k + 1 up to 2^16
+    degs = [0, 1, 2, 3, 4] + [2**k + i for k in range(1, 17) for i in (-1, 0, 1)]
+    pv = 2**16 + 2
+    psrc = np.repeat(np.arange(len(degs)), degs).astype(np.int32)
+    pdst = np.concatenate([np.arange(x) for x in degs]).astype(np.int32)
+    powers = build_graph(Coo(pv, pv, psrc, pdst, np.ones(psrc.size, np.float32)),
+                         GraphProperties(), device=dev)
+    equal("build_degree_histogram (powers of two)",
+          powers.build_degree_histogram(),
+          histogram(np.diff(powers.host["row_offsets"])))
+    # the bin of each degree around every power of two up to 2^24, on the
+    # device and on the CPU, through a stand-in for the graph
+    from types import SimpleNamespace
+
+    def bins_on(device, degrees):
+        t = torch.from_numpy(degrees).to(device)
+        return Graph.build_degree_histogram(SimpleNamespace(
+            out_degrees=lambda: t, device=torch.device(device)))
+
+    for d in [2**k + i for k in range(1, 25) for i in (-1, 0, 1)]:
+        one = np.array([d], np.int32)
+        equal(f"build_degree_histogram of degree {d} on {dev} and the cpu",
+              bins_on(dev, one), bins_on("cpu", one).numpy())
+
+    # Timer.end(x) waits for x's device; milliseconds() is its value
+    timers = {}
+    for kind in (("cuda",) if cuda else ()) + ("cpu",):
+        timer = Timer(kind)
+        timer.begin()
+        x = sym.get_intersection_count(eu[:100_000], ev[:100_000])
+        got = timer.end(x)
+        if not got > 0 or timer.milliseconds() != got:
+            raise AssertionError(f"graph accessors: Timer({kind!r}).end(x) "
+                                 f"gave {got}, milliseconds() "
+                                 f"{timer.milliseconds()}")
+        timer.reset()
+        if timer.milliseconds() != 0.0:
+            raise AssertionError("graph accessors: Timer.reset()")
+        timers[kind] = got
+    return {
+        "vertices": V, "edges": E, "ms": ms,
+        "get_edge_pairs": int(u.size), "get_edge_random_found": pairs_found,
+        "symmetric_edges": sym.n_edges, "undirected_edges": int(eu.numel()),
+        "symmetric_build_s": sym_s,
+        "intersection_products": products,
+        "intersection_blocks": -(-products // graph_module.INTERSECT_BLOCK),
+        "intersection_peak_bytes": peak,
+        "intersection_sum": total, "triangles": triangles,
+        "hubs": [a, b], "hub_common": int(n_common),
+        "hub_common_id_sum": int(id_sum), **stats,
+        "histogram": hist.tolist(), "timer_end_ms": timers,
+        "name_power_limit": smi,
+    }
+
+
 def check_export(path: Path, name: str) -> dict:
     """The bfs CLI's metrics JSON: the reference's key set and schema, the
     card named in gpuinfo, mteps from the recorded times."""
@@ -4173,6 +4436,13 @@ def main() -> int:
     t0 = time.perf_counter()
     print(json.dumps({"ingest": ingest_path(torch, smi)}))
     seconds["ingest_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    accessors = graph_accessors_path(torch, graph, smi)
+    accessors["launches"] = dict(_build.LAUNCHES)  # tc.run's, for the check
+    print(json.dumps({"graph_accessors": accessors}))
+    seconds["graph_accessors"] = time.perf_counter() - t0
 
     # 4. the CLIs, validated against the CPU oracles (chesapeake is
     # symmetric, so the hits CLI takes the symmetric dense pass)

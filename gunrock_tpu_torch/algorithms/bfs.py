@@ -232,15 +232,18 @@ def msbfs_kernel(graph: Graph, sources, pull_layout=None,
 
 
 def bfs_kernel(graph: Graph, single_source: int,
-               max_iterations: int | None = None):
+               max_iterations: int | None = None,
+               compute_predecessors: bool = True):
     """Plain-tensor level-synchronous BFS. Returns (distances,
-    predecessors, depth)."""
+    predecessors, depth); ``compute_predecessors=False`` skips the
+    predecessors' segmented min and gives None for them."""
     V = graph.n_vertices
     dev = graph.device
     max_it = V if max_iterations is None else max_iterations
     dist = torch.full((V,), UNREACHED, dtype=torch.int32, device=dev)
     dist[single_source] = 0
-    pred = torch.full((V,), -1, dtype=torch.int32, device=dev)
+    pred = (torch.full((V,), -1, dtype=torch.int32, device=dev)
+            if compute_predecessors else None)
     front = torch.zeros(V, dtype=torch.bool, device=dev)
     front[single_source] = True
     it = 0

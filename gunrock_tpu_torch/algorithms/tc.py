@@ -220,13 +220,13 @@ def probe_chunk(max_dag_degree: int) -> int:
     return int(max(128, min((1 << 22) // max(max_dag_degree, 1), 1 << 15)))
 
 
-def tc_kernel(n_vertices: int, dag_offsets, dag_adj, edge_u, edge_v,
+def tc_kernel(graph_n_vertices: int, dag_offsets, dag_adj, edge_u, edge_v,
               max_dag_degree: int, chunk: int):
     """Batched wedge-check TC over DAG edges, ``chunk`` edges at a time:
     gather N+(u) padded to the max DAG degree, lower-bound each element in
     N+(v), add every found triangle to its three corners. Returns
     int32[V]."""
-    V = n_vertices
+    V = graph_n_vertices
     dev = dag_offsets.device
     D = max(int(max_dag_degree), 1)
     steps = _search_steps(D)

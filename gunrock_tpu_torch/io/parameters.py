@@ -25,6 +25,7 @@ from gunrock_tpu_torch.ops.configs import (
     UniquifyAlgorithm,
     default_options,
 )
+from gunrock_tpu_torch.io.loader import is_binary_csr
 
 
 @dataclasses.dataclass
@@ -38,6 +39,7 @@ class Parameters:
     json_file: str
     tags: list
     options: Options
+    binary: bool
     device: str
     reorder: str
     # the argparse namespace, with each CLI's own flags (extra_args)
@@ -154,6 +156,7 @@ def parse(algorithm: str, argv=None, extra_args=None) -> Parameters:
         json_file=ns.json_file,
         tags=parse_tag_string(ns.tag),
         options=options,
+        binary=is_binary_csr(ns.market),
         device=ns.device,
         reorder=ns.reorder,
         extra=ns,

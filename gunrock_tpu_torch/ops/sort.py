@@ -6,7 +6,8 @@ several keys is a chain of stable one-key sorts from the minor key to the
 major one, which gives the order of ``jax.lax.sort(num_keys=k)`` exactly
 (that sort is stable too). The JAX package's ``two_pass`` knob and its
 ``GUNROCK_LEX2PASS`` variable pick between two lowerings of the same
-order on the TPU; the port has the one lowering and no such knob.
+order on the TPU; the port has the one lowering, so it takes
+``two_pass`` and ignores it, and reads no such variable.
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ from __future__ import annotations
 import torch
 
 
-def lex_sort(operands: tuple, num_keys: int = 2):
+def lex_sort(operands: tuple, num_keys: int = 2, two_pass: bool | None = None):
     """Stable lexicographic sort of the 1-D tensors ``operands`` by the
     first ``num_keys`` of them (the rest are payload). Returns the tuple
-    of sorted tensors."""
+    of sorted tensors. ``two_pass`` is JAX's choice of lowering; both of
+    its lowerings give this order, so it is ignored."""
+    del two_pass
     operands = tuple(operands)
     perm = None
     for key in reversed(operands[:num_keys]):

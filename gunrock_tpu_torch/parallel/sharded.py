@@ -164,14 +164,15 @@ def _halo_tables(other: np.ndarray, starts: np.ndarray, n: int, Vs: int,
 
 
 def partition_sharded(graph: Graph, n_shards: int, mesh=None,
-                      use_halo: bool | None = None,
-                      shard: int | None = None) -> ShardedGraph:
+                      axis_name: str = "edges", use_halo: bool | None = None,
+                      *, shard: int | None = None) -> ShardedGraph:
     """This rank's shard of the vertex-sharded partition, built on the host
     from the graph's host arrays and placed on the mesh's device (shard
     ``mesh.rank``; without a mesh, ``shard`` (default 0) on the graph's
     device). ``use_halo=None`` picks the exchange: the all_to_all halo when
     the largest per-pair boundary H is below the shard width Vs (sparse
-    cuts), else one all_gather."""
+    cuts), else one all_gather. ``axis_name`` is JAX's mesh axis; the
+    port's collectives run over all ranks, so it names nothing here."""
     if shard is None:
         shard = mesh.rank if mesh is not None else 0
     device = mesh.device if mesh is not None else graph.device

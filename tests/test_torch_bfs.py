@@ -71,6 +71,23 @@ def test_bfs_kernel_do_matches_jax(graphs, mode, monkeypatch):
                           "mixed": {"pull", "push"}}[mode]
 
 
+@pytest.mark.parametrize("max_iterations", [None, 2])
+def test_bfs_kernel_without_predecessors_matches_jax(graphs, max_iterations):
+    """``bfs_kernel(..., compute_predecessors=False)`` gives (dist, None,
+    depth) in both packages, equal to the run with predecessors."""
+    jg, tg, _, _ = graphs
+    src = int(np.argmax(np.diff(tg.host["row_offsets"])))
+    jd, jp, jdepth = jbfs.bfs_kernel(jg, src, max_iterations, False)
+    td, tp, tdepth = bfs.bfs_kernel(tg, src, max_iterations, False)
+    assert jp is None and tp is None
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    assert tdepth == int(jdepth)
+    full = bfs.bfs_kernel(tg, src, max_iterations,
+                          compute_predecessors=True)
+    np.testing.assert_array_equal(full[0].numpy(), td.numpy())
+    assert full[1] is not None and full[2] == tdepth
+
+
 def test_msbfs_matches_jax(graphs):
     jg, tg, jl, tl = graphs
     sources = np.array([0, 1, 77, 300], np.int32)

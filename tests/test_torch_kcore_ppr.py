@@ -170,6 +170,23 @@ def test_sort_matches_jax():
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def test_lex_sort_two_pass_matches_jax():
+    """JAX's ``two_pass=True`` (its SpGEMM's lowering: two stable one-key
+    sorts) on keys with ties in both keys; the port takes the argument
+    and gives the same order."""
+    rng = np.random.default_rng(3)
+    k0 = rng.integers(0, 3, 400).astype(np.int32)
+    k1 = rng.integers(0, 4, 400).astype(np.int32)
+    v = rng.permutation(400).astype(np.int32)
+    j = tuple(jnp.asarray(a) for a in (k0, k1, v))
+    t = tuple(torch.from_numpy(a) for a in (k0, k1, v))
+    for two_pass in (True, False, None):
+        want = jsort.lex_sort(j, num_keys=2, two_pass=True)
+        got = sort.lex_sort(t, 2, two_pass)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 # -- CLIs and interop -------------------------------------------------------
 
 @pytest.mark.parametrize("cli,extra", [

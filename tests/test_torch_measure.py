@@ -197,3 +197,25 @@ def test_every_cli_exports_its_metrics(tmp_path, algo, argv):
         assert out["edges_visited"] == 340 * out["search_depths"][0] * k
     if algo == "spmv":
         assert (out["edges_visited"], out["nodes_visited"]) == (340, 39)
+
+
+def test_timer_takes_jax_calls():
+    """``end(*arrays)``, ``milliseconds()`` and ``reset()`` in both
+    packages, called the same way; ``timed`` still times one call."""
+    import jax.numpy as jnp
+
+    from gunrock_tpu.utils.timer import Timer as JTimer
+    from gunrock_tpu_torch.utils.timer import Timer, timed
+
+    for timer, x in ((JTimer(), jnp.ones(8)), (Timer("cpu"), torch.ones(8))):
+        assert timer.milliseconds() == 0.0
+        timer.begin()
+        ms = timer.end(x, (x, [x]), {"x": x})
+        assert isinstance(ms, float) and ms >= 0.0
+        assert timer.milliseconds() == ms
+        timer.begin()
+        assert timer.end() == timer.milliseconds() >= 0.0
+        timer.reset()
+        assert timer.milliseconds() == 0.0
+    out, ms = timed("cpu", lambda: torch.arange(3).sum())
+    assert int(out) == 3 and ms >= 0.0

@@ -264,6 +264,46 @@ def test_cli_flags_parse_into_options():
             assert getattr(to, f) == getattr(jo, f)
 
 
+def _cli_parse_args(pkg: str, name: str, monkeypatch) -> tuple:
+    """(algorithm, extra_args) that a CLI's main() hands to ``parse``."""
+    mod = importlib.import_module(f"{pkg}.examples.{name}")
+
+    def catch(algorithm, argv=None, extra_args=None):
+        raise _Parser(algorithm, extra_args)
+
+    monkeypatch.setattr(mod, "parse", catch)
+    with pytest.raises(_Parser) as got:
+        mod.main(["--market", CHESAPEAKE])
+    return got.value.args
+
+
+@pytest.mark.parametrize("name", CLIS)
+def test_every_cli_parses_binary_as_jax(name, monkeypatch):
+    """``Parameters.binary`` is ``is_binary_csr(--market)`` in both
+    packages, and each CLI's flags parse into the same common fields."""
+    import dataclasses
+
+    from gunrock_tpu.io import parameters as j_params
+    from gunrock_tpu_torch.io import parameters as t_params
+
+    j_args = _cli_parse_args("gunrock_tpu", name, monkeypatch)
+    t_args = _cli_parse_args("gunrock_tpu_torch", name, monkeypatch)
+    assert j_args[0] == t_args[0]
+    t_fields = [f.name for f in dataclasses.fields(t_params.Parameters)]
+    common = [f.name for f in dataclasses.fields(j_params.Parameters)
+              if f.name in t_fields and f.name not in ("options", "extra")]
+    assert "binary" in common
+    # JAX's order of fields, the port's device and reorder after binary
+    assert t_fields.index("binary") == t_fields.index("options") + 1
+    for market, binary in (("graph.csr", True), (CHESAPEAKE, False)):
+        argv = ["-m", market, "-n", "2", "-t", "a,b"]
+        jp = j_params.parse(j_args[0], argv, j_args[1])
+        tp = t_params.parse(t_args[0], argv, t_args[1])
+        assert tp.binary is jp.binary is binary
+        assert {f: getattr(tp, f) for f in common} == \
+            {f: getattr(jp, f) for f in common}
+
+
 def test_ops_names_match_jax():
     def names(mod):
         return {n for n in vars(mod) if not n.startswith("_")

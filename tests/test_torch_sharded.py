@@ -261,6 +261,29 @@ def test_partition_matches_jax(graphs, gkey, mode):
                 np.asarray(getattr(js, f)).reshape(N, Vs + 1)[s], err_msg=f)
 
 
+@pytest.mark.parametrize("gkey", ["dir", "sym"])
+def test_partition_takes_jax_positional_form(graphs, gkey):
+    """``partition_sharded(g, 4, None, "edges", False)``: JAX's fourth
+    parameter is ``axis_name``, its fifth ``use_halo``; the port's shard 0
+    equals the real prefix of JAX's, and ``shard`` is keyword-only."""
+    jg = graphs[gkey]
+    tg = port_graph(jg)
+    js = jsharded.partition_sharded(jg, N, None, "edges", False)
+    ts = tsharded.partition_sharded(tg, N, None, "edges", False)
+    assert ts.use_halo is False and js.use_halo is False
+    for f in ("n_vertices", "v_per_shard", "ed_per_shard", "es_per_shard"):
+        assert getattr(ts, f) == getattr(js, f), f
+    for f, per in (("d_src", js.ed_per_shard), ("s_dst", js.es_per_shard)):
+        want = np.asarray(getattr(js, f)).reshape(N, per)[0]
+        got = getattr(ts, f).numpy()
+        np.testing.assert_array_equal(got, want[:got.size], err_msg=f)
+    kw = tsharded.partition_sharded(tg, N, axis_name="edges", use_halo=False,
+                                    shard=0)
+    np.testing.assert_array_equal(kw.d_src.numpy(), ts.d_src.numpy())
+    with pytest.raises(TypeError):
+        tsharded.partition_sharded(tg, N, None, "edges", False, 0)
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 def test_collective_bytes_match_jax(graphs, mode):
     for jg in graphs.values():

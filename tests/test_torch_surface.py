@@ -6,9 +6,25 @@ Every JAX module outside ``ops/pallas/`` (whose kernels the port holds in
 each JAX module's public top-level names (those it defines, and its
 ``__all__``) are among the port module's top-level names, defined or
 imported. The exceptions are ROADMAP A's deliberate list, which is itself
-held to be exact. No port module imports jax or the JAX package."""
+held to be exact. No port module imports jax or the JAX package.
+
+Below the names, each public class and function a JAX module defines is
+held to its port counterpart (found where the port module defines or
+imports it):
+(a) each public method and annotated field of the JAX class (its own or
+    inherited from a JAX base) is a member of the port's class, defined or
+    inherited from a port base;
+(b) each parameter name of a JAX function or method is a parameter of the
+    port's counterpart;
+(c) each of JAX's positional parameters keeps its place among the port's
+    positional parameters;
+(d) a JAX ``*args`` is matched by a port ``*args``.
+The members and parameters the port leaves out on purpose, and the
+parameters only the port has (besides every entry point's ``device=``),
+are pinned in two exact dicts."""
 
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -29,6 +45,70 @@ NOT_PORTED_NAMES = {
     "utils/profiler.py": {"cost_analysis"},  # XLA's cost model
     "utils/roofline.py": {"cost_analysis_bytes", "STREAM_GBPS"},  # XLA; the TPU's rate
 }
+
+
+# JAX members and parameters the port leaves out on purpose (ROADMAP C), by
+# module and by class, function or "Class.method"
+NOT_PORTED_MEMBERS = {
+    # no interpret mode: the port's kernels run on the card, their plain
+    # versions on the CPU
+    "algorithms/bc.py": {"bc_kernel_pallas": {"interpret"},
+                         "bc_batch_kernel": {"interpret"}},
+    "algorithms/bfs.py": {"bfs_kernel_do": {"interpret"},
+                          "msbfs_kernel": {"interpret"}},
+    "algorithms/color.py": {"color_kernel_rank_pallas": {"interpret"},
+                            "color_kernel_greedy_pallas": {"interpret"},
+                            "color_kernel_pallas": {"interpret"}},
+    "algorithms/geo.py": {"geo_kernel": {"interpret"}},
+    "algorithms/hits.py": {"hits_kernel_pallas": {"interpret"},
+                           "HitsEnactor.__init__": {"interpret"}},
+    "algorithms/ppr.py": {"ppr_kernel_pallas": {"interpret"},
+                          "ppr_batch_kernel_spmm": {"interpret"}},
+    "algorithms/pr.py": {"pr_kernel_pallas": {"interpret"},
+                         "pr_batch_kernel_spmm": {"interpret"}},
+    "algorithms/spmv.py": {"spmm_kernel": {"interpret"}},
+    "algorithms/sssp.py": {"sssp_kernel_do": {"interpret"},
+                           "sssp_kernel_pallas": {"interpret"},
+                           "sssp_do_slabbed": {"interpret"}},
+    "ops/advance.py": {"advance_semiring": {"interpret"}},
+    # the TPU's fields; the port's describe the card
+    "device/properties.py": {"DeviceProperties": {
+        "kind", "generation", "hbm_bytes", "vmem_bytes", "mxu_size",
+        "lanes"}},
+    # one process a shard: shards are not padded to a common shape, and a
+    # rank's ShardedLayouts holds its own layout
+    "parallel/sharded.py": {
+        "ShardedGraph": {"d_valid", "s_valid"},
+        "ShardedLayouts": {
+            "row_local", "col_local", "values", "chunk_rb", "chunk_cb",
+            "rb_occupied", "src_bits", "dst_bits", "window", "chunk",
+            "n_chunks", "n_row_blocks", "n_col_blocks", "n_shards",
+            "interpret"},
+        "build_sharded_layouts": {"interpret"}},
+}
+# parameters only the port has, besides every entry point's device= (the
+# device rule), by module and by function or "Class.method"
+PORT_ONLY_PARAMS = {
+    # a permutation given in place of a seeded draw (random streams differ)
+    "algorithms/color.py": {"color_kernel_rank": {"priorities"},
+                            "color_kernel": {"priorities"},
+                            "color_kernel_pallas": {"priorities"}},
+    "parallel/sharded.py": {"color": {"perm"},
+                            # a rank builds its own shard only
+                            "partition_sharded": {"shard"},
+                            "build_sharded_layouts": {"mesh", "shard"}},
+    # the Weiszfeld steps of each outer iteration, for the measurement
+    "algorithms/geo.py": {"geo_kernel": {"steps_out"}},
+    # the window and chunk follow the graph's size on the card
+    "device/properties.py": {"launch_params": {"n_vertices"}},
+    # the oracle streams its sparse product in row blocks
+    "examples/cpu_reference.py": {"tc": {"block_rows"}},
+    # a distributed CLI starts its ranks and runs the calls in them
+    "examples/runner.py": {"maybe_mesh": {"graph", "algo", "calls"}},
+    # the port's two coloring and two MST paths are both reachable
+    "interop.py": {"color_run": {"strategy"}, "mst_run": {"strategy"}},
+}
+EXEMPT_PORT_PARAMS = {"device"}
 
 
 def _modules(tree: Path, skip=()) -> list[str]:
@@ -118,3 +198,169 @@ def test_mesh_axes_matches_jax(shape):
                  shape=shape, device=torch.device("cpu"), backend="gloo",
                  groups={})
     assert mesh_axes(tmesh) == j_mesh_axes(jmesh)
+
+
+def _definitions(path: Path):
+    """({name: def node}, {name: (module, level, original name)}) of a
+    module's top level: its functions and classes, and the names it
+    imports or binds to another name (level -1)."""
+    defs, refs = {}, {}
+    for node in _statements(ast.parse(path.read_text()).body):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            defs[node.name] = node
+        elif isinstance(node, ast.ImportFrom):
+            for a in node.names:
+                refs[a.asname or a.name] = (node.module, node.level, a.name)
+        elif isinstance(node, ast.Assign) and isinstance(node.value, ast.Name):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    refs.setdefault(t.id, (None, -1, node.value.id))
+    return defs, refs
+
+
+def _module_file(tree: Path, rel: str, module, level: int):
+    if level:
+        base = (tree / rel).parents[level - 1]
+        parts = module.split(".") if module else []
+    else:
+        parts = module.split(".")
+        if parts[0] != tree.name:
+            return None  # outside the package
+        base, parts = tree, parts[1:]
+    p = base.joinpath(*parts)
+    for f in (p.with_suffix(".py"), p / "__init__.py"):
+        if f.exists():
+            return f.relative_to(tree).as_posix()
+    return None
+
+
+def _find(tree: Path, rel: str, name: str, depth: int = 0):
+    """(def node, module) of ``name`` as module ``rel`` of ``tree`` sees
+    it, following imports and aliases; (None, None) if not found."""
+    defs, refs = _definitions(tree / rel)
+    if name in defs:
+        return defs[name], rel
+    if name in refs and depth < 8:
+        module, level, orig = refs[name]
+        if level == -1:
+            return _find(tree, rel, orig, depth + 1)
+        where = _module_file(tree, rel, module, level)
+        if where is not None:
+            return _find(tree, where, orig, depth + 1)
+    return None, None
+
+
+def _members(tree: Path, rel: str, cls: ast.ClassDef, depth: int = 0) -> dict:
+    """{name: FunctionDef or None (a field)} of a class, its bases' in the
+    same tree included."""
+    out = {}
+    for node in cls.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = node
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            out[node.target.id] = None
+        elif isinstance(node, ast.Assign):
+            out.update((t.id, None) for t in node.targets if isinstance(t, ast.Name))
+    for base in cls.bases:
+        if isinstance(base, ast.Name) and depth < 8:
+            node, where = _find(tree, rel, base.id)
+            if isinstance(node, ast.ClassDef):
+                for k, v in _members(tree, where, node, depth + 1).items():
+                    out.setdefault(k, v)
+    return out
+
+
+def _public_member(name: str) -> bool:
+    return not name.startswith("_") or name in ("__init__", "__call__")
+
+
+def _params(fn):
+    a = fn.args
+    positional = [x.arg for x in a.posonlyargs + a.args]
+    return positional, set(positional) | {x.arg for x in a.kwonlyargs}, a.vararg
+
+
+def _compare_signature(qual: str, jfn, pfn, rel: str, out: dict) -> None:
+    skipped = NOT_PORTED_MEMBERS.get(rel, {}).get(qual, set())
+    jpos, jnames, jvar = _params(jfn)
+    ppos, pnames, pvar = _params(pfn)
+    if jnames - pnames:  # (b)
+        out["missing"][qual] = out["missing"].get(qual, set()) | (jnames - pnames)
+    extra = pnames - jnames - EXEMPT_PORT_PARAMS
+    if extra:
+        out["port_only"][qual] = extra
+    jpos = [n for n in jpos if n not in skipped]
+    for i, n in enumerate(jpos):  # (c)
+        if n in pnames and ppos[i:i + 1] != [n]:
+            out["faults"].append(f"{qual}: {n} is positional parameter {i} "
+                                 f"in JAX, the port's are {ppos}")
+    if jvar and not pvar:  # (d)
+        out["faults"].append(f"{qual}: JAX takes *{jvar.arg}, the port no *args")
+
+
+def _compare_module(rel: str) -> dict:
+    out = {"missing": {}, "port_only": {}, "faults": []}
+    jdefs, _ = _definitions(JAX / rel)
+    for name, jnode in jdefs.items():
+        if name.startswith("_") or name in NOT_PORTED_NAMES.get(rel, ()):
+            continue
+        pnode, prel = _find(PORT, rel, name)
+        is_class = isinstance(jnode, ast.ClassDef)
+        if pnode is None or isinstance(pnode, ast.ClassDef) != is_class:
+            out["faults"].append(f"{name}: the port has no "
+                                 f"{'class' if is_class else 'function'} {name}")
+            continue
+        if not is_class:
+            _compare_signature(name, jnode, pnode, rel, out)
+            continue
+        pm = _members(PORT, prel, pnode)
+        for m, jfn in _members(JAX, rel, jnode).items():
+            if not _public_member(m):
+                continue
+            if m not in pm:  # (a)
+                if not m.startswith("_"):
+                    out["missing"].setdefault(name, set()).add(m)
+            elif jfn is not None and pm[m] is not None:
+                _compare_signature(f"{name}.{m}", jfn, pm[m], rel, out)
+    return out
+
+
+SIGNATURE_MODULES = [m for m in JAX_MODULES if m not in NOT_PORTED_MODULES]
+
+
+@pytest.mark.parametrize("rel", SIGNATURE_MODULES)
+def test_members_and_signatures_match_jax(rel):
+    found = _compare_module(rel)
+    assert not found["faults"], f"{rel}: {found['faults']}"
+    assert found["missing"] == NOT_PORTED_MEMBERS.get(rel, {}), (
+        f"{rel}: the port lacks {found['missing']}; pinned "
+        f"{NOT_PORTED_MEMBERS.get(rel, {})}")
+    assert found["port_only"] == PORT_ONLY_PARAMS.get(rel, {}), (
+        f"{rel}: port-only parameters {found['port_only']}; pinned "
+        f"{PORT_ONLY_PARAMS.get(rel, {})}")
+
+
+def test_pinned_differences_name_ported_modules():
+    assert set(NOT_PORTED_MEMBERS) <= set(SIGNATURE_MODULES)
+    assert set(PORT_ONLY_PARAMS) <= set(SIGNATURE_MODULES)
+
+
+def test_signature_pass_sees_a_removed_method(tmp_path, monkeypatch):
+    """The pass fails on a port whose Graph lacks one of JAX's methods, or
+    whose function moved a positional parameter: it is run on a copy of
+    the port with each change made."""
+    import shutil
+
+    copy = tmp_path / PORT.name
+    shutil.copytree(PORT, copy, ignore=shutil.ignore_patterns("_build", "*.so"))
+    monkeypatch.setattr(sys.modules[__name__], "PORT", copy)
+    graph = copy / "graph/graph.py"
+    text = graph.read_text()
+    assert not _compare_module("graph/graph.py")["missing"]
+    graph.write_text(text.replace("def get_edge(", "def _get_edge("))
+    assert _compare_module("graph/graph.py")["missing"] == {"Graph": {"get_edge"}}
+    sort = copy / "ops/sort.py"
+    sort.write_text(sort.read_text().replace(
+        "lex_sort(operands: tuple, num_keys: int = 2,",
+        "lex_sort(num_keys: int = 2, *, operands: tuple = (),"))
+    assert _compare_module("ops/sort.py")["faults"]

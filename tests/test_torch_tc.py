@@ -134,6 +134,26 @@ def test_slab_banded_inputs_stay_in_their_windows(graphs):
     np.testing.assert_array_equal(got[v], rk["wadj"][adj_pos.numpy()[v]])
 
 
+def test_tc_kernel_by_keyword_matches_jax(graphs):
+    """``tc_kernel`` called by JAX's parameter names; JAX's edges padded
+    with -1 to a multiple of the chunk, as it requires."""
+    jg, tg = graphs
+    offsets, adj, eu, ev, _ = tc.build_dag(tg)
+    D, chunk = int(np.diff(offsets).max()), 128
+    pad = -eu.size % chunk
+    jeu, jev = (np.concatenate([a, np.full(pad, -1, np.int32)]) for a in (eu, ev))
+    want = jtc.tc_kernel(graph_n_vertices=jg.n_vertices,
+                         dag_offsets=jnp.asarray(offsets),
+                         dag_adj=jnp.asarray(adj), edge_u=jnp.asarray(jeu),
+                         edge_v=jnp.asarray(jev), max_dag_degree=D, chunk=chunk)
+    got = tc.tc_kernel(graph_n_vertices=tg.n_vertices,
+                       dag_offsets=torch.from_numpy(offsets),
+                       dag_adj=torch.from_numpy(adj), edge_u=torch.from_numpy(eu),
+                       edge_v=torch.from_numpy(ev), max_dag_degree=D, chunk=chunk)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got.sum()) > 0
+
+
 def test_sortjoin_kernels_match_jax(graphs):
     jg, tg = graphs
     rk = tc.build_dag_ranked(tg)
