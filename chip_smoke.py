@@ -59,8 +59,10 @@ Phases, each raising on failure:
    bit with equal sweep and pass counts; PageRank within rtol 1e-5, sweeps
    within one, two launches bit-equal) on the R-MAT 18 graph and a
    Delaunay mesh of 2^16 points (natural and RCM order), and at the edge
-   shapes in 1 to 10,000 blocks (clamped to V), edgeless, with a sweep
-   cap of 0 and 1.
+   shapes in 1 to 10,000 blocks (clamped to V), 2 blocks (every sweep's
+   turnaround repeats a block), blocks of fewer edges than a warp tile, a
+   hub whose in-edges span more warp tiles than the grid has warps,
+   edgeless, with a sweep cap of 0 and 1 for both kernels.
    Then the edge shapes again, 20 times, on the range-checking build.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
@@ -194,6 +196,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 try:  # the bound column (the card's published peaks) and the profiles
+    from gunrock_tpu_torch.probes import async_cases as ac
     from gunrock_tpu_torch.utils.roofline import bound_ms, roofline
     from gunrock_tpu_torch.utils.trace_stats import device_profile
 except ImportError as exc:  # run without the package beside it
@@ -2922,53 +2925,11 @@ def operators_path(torch, graph) -> dict:
     return out
 
 
-ASYNC_BLOCKS = 32  # the async sweep's default block count
 # PageRank's tol for the fixed-point check: the JAX test's 1e-7 on a
 # 1,024-vertex graph scaled to the mean rank of R-MAT 18's 262,144 (4e-10),
 # rounded up to 1e-9, several ulps of the largest rank
 PR_FIXED_POINT_TOL = 1e-9
-MESH_SEED = 3
-MESH_POINTS = 2**18  # the async path's mesh: 262,144 points
 MESH_CHECK_POINTS = 2**16  # the mesh the sweeps' plain loops run on
-
-
-def top_vertex(graph) -> int:
-    """The vertex of most out-edges (the lowest id among ties)."""
-    import numpy as np
-
-    return int(np.argmax(np.diff(graph.host["row_offsets"])))
-
-
-def sweep_args(torch, graph, source: int, unit: bool, n_blocks=ASYNC_BLOCKS,
-               max_sweeps=None) -> tuple:
-    """gs_sweep_min's inputs for one search from ``source``, as
-    ``experimental/async_sweep.py`` builds them."""
-    from gunrock_tpu_torch.experimental.async_sweep import _block_plan
-
-    V = graph.n_vertices
-    v_starts, e_starts = _block_plan(graph, max(1, min(n_blocks, V)))
-    dist0 = torch.full((V,), float("inf"), device=graph.device)
-    dist0[source] = 0.0
-    values = torch.ones_like(graph.csc_values) if unit else graph.csc_values
-    return (graph.csc_rows, values, graph.csc_dst, v_starts, e_starts, dist0,
-            2 * V if max_sweeps is None else max_sweeps)
-
-
-def pr_args(torch, graph, tol: float, n_blocks=ASYNC_BLOCKS,
-            alpha: float = 0.85) -> tuple:
-    """gs_sweep_pr's inputs, as ``experimental/async_sweep.pr_async``
-    builds them."""
-    import numpy as np
-
-    from gunrock_tpu_torch.algorithms.pr import compute_iweights
-    from gunrock_tpu_torch.experimental.async_sweep import _block_plan
-
-    V = graph.n_vertices
-    v_starts, e_starts = _block_plan(graph, max(1, min(n_blocks, V)))
-    iweights = compute_iweights(graph, 1.0)
-    return (graph.csc_rows, graph.csc_values * float(np.float32(alpha)),
-            graph.csc_dst, v_starts, e_starts, iweights, iweights == 0.0,
-            torch.full((V,), 1.0 / V, device=graph.device), alpha, tol, 10_000)
 
 
 # the plain loops' results by case: the edge shapes run 21 times with the
@@ -3003,21 +2964,31 @@ def check_sweep_min(torch, what: str, args) -> tuple:
     return s, p
 
 
-def check_sweep_pr(torch, what: str, args) -> float:
+def check_sweep_pr(torch, what: str, args, sweeps=None, f64=False) -> float:
     """gs_sweep_pr against its plain loop: within rtol 1e-5, sweeps within
-    one (rounding can decide the stop), and a second launch bit-equal to
-    the first. Returns the max abs error."""
+    one (rounding can decide the stop; both exactly ``sweeps`` where
+    given), and a second launch bit-equal to the first. With ``f64`` the
+    plain loop runs in float64: a float32 running sum over a hub's tens of
+    thousands of in-edges is itself off by more than 1e-5. Returns the max
+    abs error."""
     from gunrock_tpu_torch.ops.kernels import async_sweep
 
     p, s = async_sweep.gs_sweep_pr(*args)
     torch.cuda.synchronize()
-    pp, ps = _plain_sweep("gs_sweep_pr", what, args)
+    ref = list(args)
+    if f64:  # values, iweights and p0 in float64
+        for i in (1, 5, 7):
+            ref[i] = ref[i].double()
+        what += ", float64 plain loop"
+    pp, ps = _plain_sweep("gs_sweep_pr", what, ref)
+    p = p.to(pp.dtype)
     rel = float(((p - pp).abs() / pp.abs()).max()) if p.numel() else 0.0
-    if not rel <= 1e-5 or abs(s - ps) > 1:
+    if (not rel <= 1e-5 or abs(s - ps) > 1
+            or (sweeps is not None and not s == ps == sweeps)):
         raise AssertionError(f"gs_sweep_pr {what}: rel err {rel} (limit 1e-5), "
                              f"sweeps {s} against the plain loop's {ps}")
     p2, s2 = async_sweep.gs_sweep_pr(*args)
-    if not torch.equal(p2, p) or s2 != s:
+    if not torch.equal(p2.to(p.dtype), p) or s2 != s:
         raise AssertionError(f"gs_sweep_pr {what}: two launches differ")
     return float((p - pp).abs().max()) if p.numel() else 0.0
 
@@ -3025,10 +2996,16 @@ def check_sweep_pr(torch, what: str, args) -> float:
 def async_edge_shapes(torch, graph, dev) -> dict:
     """The sweep kernels at shapes the main path does not have: the V=1000
     skewed graph and its reverse (a hub destination of ~2,000 in-edges:
-    the warp fold, eight PageRank pieces) in one block, 7 and 64; a
-    40-vertex graph in more blocks than vertices (clamped to V) and an
-    edgeless graph; a sweep cap of 0 and 1. Returns {kernel: max abs
-    error}."""
+    the warp fold, a run across many warp tiles) in 1, 2 (every sweep's
+    turnaround repeats a block), 7 and 64 blocks; a 40-vertex graph in
+    more blocks than vertices (clamped to V: blocks of fewer edges than a
+    warp tile) and a 12-edge graph in one block; a two-way star whose hub
+    has more in-edges than 32 x the grid's warps (its run spans more warp
+    tiles than the grid has warps) in 1, 2 and 7 blocks; an edgeless
+    graph; a sweep cap of 0 and 1 for both kernels. PageRank runs to tol
+    1e-6, and on the new shapes for a fixed 3 sweeps (tol 0), so that
+    rounding cannot move the stop; on the star against the plain loop in
+    float64. Returns {kernel: max abs error}."""
     import numpy as np
 
     from gunrock_tpu_torch.formats import Coo
@@ -3038,43 +3015,52 @@ def async_edge_shapes(torch, graph, dev) -> dict:
     V = graph.n_vertices
     rng = np.random.default_rng(SEED + 3)
     small = rng.integers(0, 40, (2, 200)).astype(np.int32)
+    # 32 slots a warp tile, 16 warps a block of 512 threads, one block an SM
+    hub = 32 * 16 * torch.cuda.get_device_properties(dev).multi_processor_count + 1000
+    leaves = np.arange(1, hub + 1, dtype=np.int32)
+    star = np.concatenate([leaves, np.zeros(hub, np.int32)]), \
+        np.concatenate([np.zeros(hub, np.int32), leaves])
     graphs = {
-        "skewed": (graph, (1, 7, 64)),
+        "skewed": (graph, (1, 2, 7, 64)),
         "reversed": (build_graph(Coo(V, V, h["col_indices"], h["edge_src"],
-                                     h["values"]), device=dev), (1, 7, 64)),
+                                     h["values"]), device=dev), (1, 2, 7, 64)),
         "small": (build_graph(Coo(40, 40, small[0], small[1], (rng.random(
             200) + 0.1).astype(np.float32)), device=dev), (3, 10_000)),
+        "tiny": (build_graph(Coo(40, 40, small[0, :12], small[1, :12], (
+            rng.random(12) + 0.1).astype(np.float32)), device=dev), (1,)),
+        "star": (build_graph(Coo(hub + 1, hub + 1, star[0], star[1], (
+            rng.random(2 * hub) + 0.1).astype(np.float32)), device=dev),
+            (1, 2, 7)),
         "edgeless": (build_graph(Coo(5, 5, small[0, :0], small[1, :0],
                                      h["values"][:0]), device=dev), (1, 10_000)),
     }
+    fixed = ("tiny", "star")  # PageRank for a fixed 3 sweeps
     errs = {"gs_sweep_min": 0.0, "gs_sweep_pr": 0.0}
     for name, (g, block_counts) in graphs.items():
-        src = top_vertex(g)
+        src = ac.top_vertex(g) if name != "star" else 1
         for n_blocks in block_counts:
             for unit in (False, True):
                 check_sweep_min(torch, f"{name}, {n_blocks} blocks, unit {unit}",
-                                sweep_args(torch, g, src, unit, n_blocks))
-            e = check_sweep_pr(torch, f"{name}, {n_blocks} blocks",
-                               pr_args(torch, g, 1e-6, n_blocks))
+                                ac.sweep_args(g, src, unit, n_blocks))
+            if name in fixed or n_blocks == 2:
+                e = check_sweep_pr(torch, f"{name}, {n_blocks} blocks",
+                                   ac.pr_args(g, 0.0, n_blocks, max_sweeps=3),
+                                   sweeps=3, f64=name == "star")
+            else:
+                e = check_sweep_pr(torch, f"{name}, {n_blocks} blocks",
+                                   ac.pr_args(g, 1e-6, n_blocks))
             errs["gs_sweep_pr"] = max(errs["gs_sweep_pr"], e)
         for cap in (0, 1):
             s, _ = check_sweep_min(torch, f"{name}, max_sweeps {cap}",
-                                   sweep_args(torch, g, src, False, 7, cap))
+                                   ac.sweep_args(g, src, False, 7, cap))
             if s != cap:
                 raise AssertionError(f"gs_sweep_min {name}: {s} sweeps under a "
                                      f"cap of {cap}")
+            e = check_sweep_pr(torch, f"{name}, max_sweeps {cap}",
+                               ac.pr_args(g, 0.0, 7, max_sweeps=cap),
+                               sweeps=cap, f64=name == "star")
+            errs["gs_sweep_pr"] = max(errs["gs_sweep_pr"], e)
     return errs
-
-
-def async_bound(graph, passes: int, ops_per_edge: int) -> tuple:
-    """The sweep kernels' bound for ``passes`` block passes of an
-    edge-balanced plan: passes x (E/n_blocks x 12 B + V/n_blocks x 8 B) at
-    the card's memory rate (each pass reads its block's edges: source,
-    weight, destination; and its vertices' two words), against
-    ``ops_per_edge`` f32 operations an edge."""
-    E, V, n = graph.n_edges, graph.n_vertices, ASYNC_BLOCKS
-    return bound_ms(passes * (E / n * 12 + V / n * 8),
-                    passes * E / n * ops_per_edge)
 
 
 def sweep_profile(fn, kernel: str) -> dict:
@@ -3096,38 +3082,43 @@ def async_kernel_rows(torch, graph) -> dict:
     a Delaunay mesh of 2^16 points (SSSP natural, BFS on the RCM order,
     PageRank), where the plain loops' host reads stay within seconds; then
     timed at R-MAT 18 (SSSP; PageRank at tol 1e-7) beside the plain loop
-    and the bound. Returns {name: row}."""
+    and the bound, with the time a block pass and what the kernel counted
+    on the card: its grid barriers (it fails above one a block pass and
+    the start's: one, two for PageRank) and its grid's CTAs and cluster
+    size, from which ``form`` is read. Returns {name: row}."""
     from gunrock_tpu_torch.graph.reorder import rcm_sort
     from gunrock_tpu_torch.io.generators import delaunay_graph
     from gunrock_tpu_torch.ops.kernels import async_sweep
 
-    mesh = delaunay_graph(MESH_CHECK_POINTS, seed=MESH_SEED, device=graph.device)
+    mesh = delaunay_graph(MESH_CHECK_POINTS, seed=ac.MESH_SEED,
+                          device=graph.device)
     mesh_rcm, ro = rcm_sort(mesh)
-    top, mtop = top_vertex(graph), top_vertex(mesh)
+    top, mtop = ac.top_vertex(graph), ac.top_vertex(mesh)
     info, pr_err = {}, 0.0
     for what, g, src, unit in (
             ("rmat18 sssp", graph, top, False), ("rmat18 bfs", graph, top, True),
             ("mesh16 sssp natural", mesh, mtop, False),
             ("mesh16 bfs rcm", mesh_rcm, int(ro.rank[mtop]), True)):
-        info[what] = check_sweep_min(torch, what, sweep_args(torch, g, src,
-                                                             unit))
+        info[what] = check_sweep_min(torch, what, ac.sweep_args(g, src, unit))
     for what, g in (("rmat18 pr", graph), ("mesh16 pr", mesh)):
         pr_err = max(pr_err, check_sweep_pr(torch, what,
-                                            pr_args(torch, g, 1e-7)))
+                                            ac.pr_args(g, 1e-7)))
     print(json.dumps({"sweep_checks": {k: {"sweeps": s, "passes": p}
                                        for k, (s, p) in info.items()}}))
 
     rows = {}
-    for name, args, passes, ops, replaces in (
-            ("gs_sweep_min", sweep_args(torch, graph, top, False),
-             info["rmat18 sssp"][1], 2, ":62"),
-            ("gs_sweep_pr", pr_args(torch, graph, 1e-7), None, 3, ":215")):
+    for name, args, ops, start, replaces in (
+            ("gs_sweep_min", ac.sweep_args(graph, top, False), 2, 1, ":62"),
+            ("gs_sweep_pr", ac.pr_args(graph, 1e-7), 3, 2, ":215")):
         kernel = getattr(async_sweep, name)
         plain = getattr(async_sweep, name + "_plain")
-        out = kernel(*args)
-        if passes is None:  # PageRank: one pass a block a sweep
-            passes = out[1] * ASYNC_BLOCKS
-        b, by = async_bound(graph, passes, ops)
+        kernel(*args)
+        run = dict(async_sweep.LAST_RUN[name])
+        passes, barriers = run["block_passes"], run["grid_barriers"]
+        if barriers > passes + start:
+            raise AssertionError(f"{name}: {barriers} grid barriers in "
+                                 f"{passes} block passes")
+        b, by = bound_ms(*ac.bound_work(graph, passes, ops))
         prof = sweep_profile(lambda: kernel(*args), name.replace("gs_", ""))
         rows[name] = dict(
             route="cuda", source="gunrock_tpu_torch/csrc/async_sweep.cu",
@@ -3140,8 +3131,12 @@ def async_kernel_rows(torch, graph) -> dict:
             device_ms=prof["busy_us"] / 1e3 if "busy_us" in prof else None,
             device_kernels_us={k: us for k, (us, _) in
                                prof.get("top_us", {}).items()},
-            library_device_ms=None, block_passes=passes,
-            grid_barriers_per_pass=2)
+            library_device_ms=None, **run,
+            grid_barriers_per_pass=barriers / passes,
+            form="grid" if run["cluster_ctas"] == 1 else "cluster")
+        rows[name]["us_per_pass"] = rows[name]["ms"] * 1e3 / passes
+        if rows[name]["device_ms"] is not None:
+            rows[name]["device_us_per_pass"] = rows[name]["device_ms"] * 1e3 / passes
     return rows
 
 
@@ -3168,28 +3163,32 @@ def async_path(torch, graph, smi: str) -> dict:
         sssp_async,
     )
     from gunrock_tpu_torch.io.generators import delaunay_graph
-    from gunrock_tpu_torch.ops.kernels import _build
+    from gunrock_tpu_torch.ops.kernels import _build, async_sweep
 
     dev = graph.device
     t0 = time.perf_counter()
-    mesh = delaunay_graph(MESH_POINTS, seed=MESH_SEED, device=dev)
+    mesh = delaunay_graph(ac.MESH_POINTS, seed=ac.MESH_SEED, device=dev)
     mesh_s = time.perf_counter() - t0
-    top, mtop = top_vertex(graph), top_vertex(mesh)
+    top, mtop = ac.top_vertex(graph), ac.top_vertex(mesh)
+    # (graph, ordering, search, ac.kernel_cases' name of its kernel call)
     cases = [
-        ("rmat18", "natural", "sssp", lambda: sssp_async(graph, top)),
-        ("rmat18", "natural", "bfs", lambda: bfs_async(graph, top)),
-        ("rmat18", "natural", "pr", lambda: pr_async(graph, tol=1e-7)),
-        ("rmat18", "natural", "pr tol 1e-9",
+        ("rmat18", "natural", "sssp", "rmat18_sssp",
+         lambda: sssp_async(graph, top)),
+        ("rmat18", "natural", "bfs", "rmat18_bfs", lambda: bfs_async(graph, top)),
+        ("rmat18", "natural", "pr", "rmat18_pr_1e-7",
+         lambda: pr_async(graph, tol=1e-7)),
+        ("rmat18", "natural", "pr tol 1e-9", "rmat18_pr_1e-9",
          lambda: pr_async(graph, tol=PR_FIXED_POINT_TOL)),
-        ("delaunay18", "natural", "sssp", lambda: sssp_async(mesh, mtop)),
-        ("delaunay18", "rcm", "sssp",
+        ("delaunay18", "natural", "sssp", "mesh18_sssp_natural",
+         lambda: sssp_async(mesh, mtop)),
+        ("delaunay18", "rcm", "sssp", "mesh18_sssp_rcm",
          lambda: sssp_async(mesh, mtop, ordering="rcm")),
-        ("delaunay18", "rcm", "bfs",
+        ("delaunay18", "rcm", "bfs", "mesh18_bfs_rcm",
          lambda: bfs_async(mesh, mtop, ordering="rcm")),
     ]
     _build.reset_launches()
     results = []
-    for g, ordering, algo, fn in cases:
+    for g, ordering, algo, key, fn in cases:
         kernel = "gs_sweep_pr" if algo.startswith("pr") else "gs_sweep_min"
         before = dict(_build.LAUNCHES)
         torch.cuda.synchronize()
@@ -3202,14 +3201,15 @@ def async_path(torch, graph, smi: str) -> dict:
         if added != {kernel: 1}:
             raise AssertionError(f"async {algo} {g} {ordering}: launched "
                                  f"{added}, not one {kernel}")
-        results.append((g, ordering, algo, fn, out, first))
+        results.append((g, ordering, algo, key, fn, out, first,
+                        dict(async_sweep.LAST_RUN[kernel])))
     launches = dict(_build.LAUNCHES)
 
     # checks
     def cpu(t):
         return t.cpu().numpy()
 
-    got = {(g, ordering, algo): out for g, ordering, algo, _, out, _ in results}
+    got = {r[:3]: r[5] for r in results}  # (graph, ordering, search): out
     sd = got["rmat18", "natural", "sssp"][0]
     bd = got["rmat18", "natural", "bfs"][0]
     pa = got["rmat18", "natural", "pr"][0]
@@ -3279,32 +3279,18 @@ def async_path(torch, graph, smi: str) -> dict:
 
     # each search's kernel alone on its prepared inputs, timed by CUDA
     # events (the profiler at times returns no device event of a long run)
-    from gunrock_tpu_torch.ops.kernels.async_sweep import gs_sweep_min, gs_sweep_pr
-
     rg, _, ro = mesh.layouts[("rcm",)]
-    rtop = int(ro.rank[mtop])
-    alone = {
-        "rmat18 natural sssp": (gs_sweep_min, sweep_args(torch, graph, top, False)),
-        "rmat18 natural bfs": (gs_sweep_min, sweep_args(torch, graph, top, True)),
-        "rmat18 natural pr": (gs_sweep_pr, pr_args(torch, graph, 1e-7)),
-        "rmat18 natural pr tol 1e-9": (gs_sweep_pr, pr_args(
-            torch, graph, PR_FIXED_POINT_TOL)),
-        "delaunay18 natural sssp": (gs_sweep_min, sweep_args(torch, mesh, mtop,
-                                                             False)),
-        "delaunay18 rcm sssp": (gs_sweep_min, sweep_args(torch, rg, rtop, False)),
-        "delaunay18 rcm bfs": (gs_sweep_min, sweep_args(torch, rg, rtop, True)),
-    }
+    alone = ac.kernel_cases(graph, mesh, (rg, ro))
     out_cases = []
-    for g, ordering, algo, fn, out, first in results:
-        kernel, args = alone[f"{g} {ordering} {algo}"]
+    for g, ordering, algo, key, fn, out, first, run in results:
+        gr, kernel, args = alone[key]
+        kernel = getattr(async_sweep, kernel)
         kernel_alone = time_ms(torch, lambda: kernel(*args), n=3)
         prof = sweep_profile(fn, "sweep_pr" if algo.startswith("pr")
                              else "sweep_min")
         wall = time_ms(torch, fn, n=3)
-        gr = graph if g == "rmat18" else mesh
-        sweeps = out[1]
+        sweeps, passes = out[1], run["block_passes"]
         pr_case = algo.startswith("pr")
-        passes = sweeps * ASYNC_BLOCKS if pr_case else out[2]
         kernel_us = {k: us for k, (us, _) in prof.get("top_us", {}).items()
                      if "sweep_" in k}
         out_cases.append({
@@ -3318,8 +3304,9 @@ def async_path(torch, graph, smi: str) -> dict:
             "not measured",
             "kernel_alone_ms": kernel_alone,
             "idle_share_events": 1 - kernel_alone / wall,
-            "bound_ms": async_bound(gr, passes, 3 if pr_case else 2)[0],
-            "name_power_limit": smi})
+            "bound_ms": bound_ms(*ac.bound_work(gr, passes,
+                                                 3 if pr_case else 2))[0],
+            "grid_barriers": run["grid_barriers"], "name_power_limit": smi})
     return {"cases": out_cases, "checks": checks, "launches": launches,
             "mesh_build_s": mesh_s, "name_power_limit": smi}
 
@@ -3665,8 +3652,8 @@ def distributed_path(torch, graph, smi: str) -> dict:
     t_start = time.perf_counter()
     dev = graph.device
     V = graph.n_vertices
-    mesh = delaunay_graph(MESH_POINTS, seed=MESH_SEED, device=dev)
-    top, mtop = top_vertex(graph), top_vertex(mesh)
+    mesh = delaunay_graph(ac.MESH_POINTS, seed=ac.MESH_SEED, device=dev)
+    top, mtop = ac.top_vertex(graph), ac.top_vertex(mesh)
     x = np.random.default_rng(SEED).random(V).astype(np.float32)
     lat, lon = default_labels(V)
     perm = torch.randperm(V, generator=torch.Generator().manual_seed(

@@ -12,9 +12,12 @@ slot; its in-edges are ``[e_starts[b], e_starts[b + 1])``, E for the
 last), from ``experimental/async_sweep.py::_block_plan``.
 
 CUDA source: ``csrc/async_sweep.cu``: one cooperative launch a search, the
-grid walking the sweeps, blocks and passes together between grid barriers;
+grid walking the sweeps, blocks and passes together, one grid barrier a
+block pass (min-plus defers each pass's commit to the next; PageRank sums
+in warp tiles of 32 CSC slots and stages its new ranks by pass parity);
 the counts stay on the card until the wrapper reads them, once, at the
-end. The plain versions below are Python loops that mirror the JAX code
+end, with the grid barriers the kernel passed and its grid's shape
+(``LAST_RUN``). The plain versions below are Python loops that mirror the JAX code
 line for line, with one host read a block pass; a wrapper given CPU
 tensors runs them.
 """
@@ -31,11 +34,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "gr_gs_sweep_min": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
                         _I, _P],
-    "gr_gs_sweep_pr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                       _I, _I, _L, _F, _F, _F, _I, _P],
+    "gr_gs_sweep_pr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _L, _F, _F, _F, _I, _P],
 }
 _NOT_SUPPORTED = 801  # cudaErrorNotSupported: no cooperative launch
-PIECE = 256  # csrc/async_sweep.cu kPiece: in-edges a warp sums
+# what each kernel's last launch counted on the card, read with its counts
+# in the search's one device-to-host read: {"gs_sweep_min" | "gs_sweep_pr":
+# {"block_passes", "grid_barriers", "ctas", "cluster_ctas"}}
+LAST_RUN: dict = {}
 
 
 def _check_plan(csc_rows, csc_values, csc_dst, v_starts, e_starts, V: int):
@@ -52,12 +58,18 @@ def _check_plan(csc_rows, csc_values, csc_dst, v_starts, e_starts, V: int):
     return dev, E, n_blocks
 
 
-def _launched(err: int, what: str) -> None:
+def _launched(err: int, what: str, out) -> tuple:
+    """Checks the launch, counts it, and reads ``out`` (the search's one
+    device-to-host read): returns (sweeps, block passes)."""
     if err == _NOT_SUPPORTED:
         raise RuntimeError(f"{what}: the device has no cooperative launch "
                            "(cudaDevAttrCooperativeLaunch)")
     _build.check(err, what)
     _build.LAUNCHES[what] += 1
+    sweeps, passes, barriers, ctas, cluster = out.tolist()
+    LAST_RUN[what] = {"block_passes": passes, "grid_barriers": barriers,
+                      "ctas": ctas, "cluster_ctas": cluster}
+    return sweeps, passes
 
 
 def gs_sweep_min(csc_rows, csc_values, csc_dst, v_starts, e_starts,
@@ -76,18 +88,20 @@ def gs_sweep_min(csc_rows, csc_values, csc_dst, v_starts, e_starts,
                                   e_starts, dist0, max_sweeps)
     if dev.type != "cuda":
         raise ValueError(f"no gs_sweep_min kernel for device {dev}")
+    max_grid = _build.sm_count(dev)
     dist = torch.empty(V, dtype=torch.float32, device=dev)
-    scratch = torch.empty(V + 2, dtype=torch.float32, device=dev)
-    out = torch.empty(2, dtype=torch.int64, device=dev)
+    # the barrier's slots and counters, then R[0..2]
+    scratch = torch.empty(4 * max_grid + 4 + 3 * V, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(5, dtype=torch.int64, device=dev)
     lib = _build.load("async_sweep", _SIGNATURES)
     err = lib.gr_gs_sweep_min(
         _build.ptr(csc_rows), _build.ptr(csc_values), _build.ptr(csc_dst),
         _build.ptr(v_starts), _build.ptr(e_starts), _build.ptr(dist0),
         _build.ptr(dist), _build.ptr(scratch), _build.ptr(out), V, E,
-        n_blocks, int(max_sweeps), _build.sm_count(dev), _build.stream(dev),
+        n_blocks, int(max_sweeps), max_grid, _build.stream(dev),
     )
-    _launched(err, "gs_sweep_min")
-    sweeps, passes = out.tolist()  # the search's one device-to-host read
+    sweeps, passes = _launched(err, "gs_sweep_min", out)
     return dist, sweeps, passes
 
 
@@ -125,15 +139,20 @@ def gs_sweep_min_plain(csc_rows, csc_values, csc_dst, v_starts, e_starts,
     return d, sweeps, passes
 
 
-def _pieces(csc_dst, V: int):
-    """(csc offsets int32[V+1], piece_first int32[V+1]): each vertex's
-    in-edges cut into pieces of ``PIECE`` (at least one piece a vertex)."""
-    grid = torch.arange(V + 1, dtype=torch.int32, device=csc_dst.device)
-    offsets = torch.searchsorted(csc_dst, grid, out_int32=True)
-    n = torch.clamp((torch.diff(offsets) + PIECE - 1) // PIECE, min=1)
-    first = torch.zeros(V + 1, dtype=torch.int32, device=csc_dst.device)
-    first[1:] = torch.cumsum(n, 0)
-    return offsets, first
+def _zero_in(offsets, v_starts):
+    """int32[n_blocks]: each block's vertices without in-edges, from the
+    csc ``offsets`` (device ops only, no host read)."""
+    zero = torch.zeros(offsets.shape[0], dtype=torch.int32,
+                       device=offsets.device)
+    zero[1:] = torch.cumsum(offsets[1:] == offsets[:-1], 0)
+    vs = v_starts.long()
+    return (zero[vs[1:]] - zero[vs[:-1]]).to(torch.int32)
+
+
+def _n_tiles(E: int) -> int:
+    """Warp tiles of 32 CSC slots, aligned to 32, that any block of an
+    E-edge plan can span (csrc/async_sweep.cu's tagged partial slots)."""
+    return (E + 62) // 32 + 1
 
 
 def gs_sweep_pr(csc_rows, csc_values, csc_dst, v_starts, e_starts, iweights,
@@ -154,24 +173,29 @@ def gs_sweep_pr(csc_rows, csc_values, csc_dst, v_starts, e_starts, iweights,
                                  tol, max_sweeps)
     if dev.type != "cuda":
         raise ValueError(f"no gs_sweep_pr kernel for device {dev}")
-    offsets, first = _pieces(csc_dst, V)
-    n_pieces = V + E // PIECE + 1  # >= first[V], no read needed
+    offsets = torch.searchsorted(
+        csc_dst, torch.arange(V + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    zero_in = _zero_in(offsets, v_starts)
+    tiles = _n_tiles(E)
     max_grid = _build.sm_count(dev)
     p = torch.empty(V, dtype=torch.float32, device=dev)
-    scratch = torch.empty(2 * n_pieces + 2 * max_grid, dtype=torch.float32,
-                          device=dev)
-    out = torch.empty(1, dtype=torch.int64, device=dev)
+    # tagged partials (u64), the barrier's slots and counters, then p * iw
+    # and the four staging vectors
+    scratch = torch.empty(16 * tiles + 16 * max_grid + 16 + 20 * V,
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty(5, dtype=torch.int64, device=dev)
     lib = _build.load("async_sweep", _SIGNATURES)
     err = lib.gr_gs_sweep_pr(
-        _build.ptr(csc_rows), _build.ptr(csc_values), _build.ptr(offsets),
-        _build.ptr(first), _build.ptr(v_starts), _build.ptr(iweights),
-        _build.ptr(dangling), _build.ptr(p0), _build.ptr(p),
-        _build.ptr(scratch), _build.ptr(out), V, E, n_blocks, n_pieces,
-        int(max_sweeps), float(alpha), float(1.0 - alpha), float(tol),
+        _build.ptr(csc_rows), _build.ptr(csc_values), _build.ptr(csc_dst),
+        _build.ptr(offsets), _build.ptr(v_starts), _build.ptr(e_starts),
+        _build.ptr(zero_in), _build.ptr(iweights), _build.ptr(dangling),
+        _build.ptr(p0), _build.ptr(p), _build.ptr(scratch), _build.ptr(out),
+        V, E, n_blocks, tiles, int(max_sweeps), float(alpha), float(1.0 - alpha), float(tol),
         max_grid, _build.stream(dev),
     )
-    _launched(err, "gs_sweep_pr")
-    return p, int(out.item())  # the search's one device-to-host read
+    sweeps, _ = _launched(err, "gs_sweep_pr", out)
+    return p, sweeps
 
 
 def gs_sweep_pr_plain(csc_rows, csc_values, csc_dst, v_starts, e_starts,

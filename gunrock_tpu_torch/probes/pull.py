@@ -125,6 +125,26 @@ bound (12 B a real slot, 8 B a chunk and the roots and y, a pass); then
 the cases ``b7_round1`` (every vertex a root) and ``b7_round2`` (the
 roots after round 1).
 
+``--async`` prints instead (no other case) one line for each sweep kernel
+case of ``chip_smoke.py``'s async path (phase g): ``async_rmat18_sssp``,
+``async_rmat18_bfs`` (``gs_sweep_min`` from the top-degree vertex, 32
+blocks), ``async_rmat18_pr_1e-7``, ``async_rmat18_pr_1e-9``
+(``gs_sweep_pr``), ``async_mesh18_sssp_natural``, ``async_mesh18_sssp_rcm``
+and ``async_mesh18_bfs_rcm`` (``gs_sweep_min`` on
+``delaunay_graph(2**18, seed=3)`` from its top-degree vertex, natural and
+RCM order; the inputs from ``probes/async_cases.py``); each with
+``sweeps``, ``block_passes``, ``ms`` and ``device_ms`` as above,
+``us_per_pass`` and ``device_us_per_pass``, ``bound_ms`` (each pass reads
+its block's edges, 12 B each, and vertices, 8 B each), and what the
+kernel counted on the card: ``grid_barriers`` (one a block pass, and one,
+for PageRank two, before the sweeps), ``ctas`` and ``cluster_ctas``. It
+uses only the kernels' public calls, so this file and
+``async_cases.py`` copied into an earlier tree time that tree's kernels
+(whose wrappers count no barriers, and no PageRank passes: there sweeps
+x blocks): ``git archive`` the parent into ``_chip/parent/``, copy the
+two files into its ``gunrock_tpu_torch/probes/``, and run the probe from
+there.
+
 ``--sweep 4,8,16,32`` adds one line per P: b3_valued, b3_pr, b1_full, b8_hits
 and b5_color with both span tables cut at P
 (``BucketedEdges.with_span_chunks``); ``--k_tiles 4,8,16`` one line per K
@@ -136,7 +156,7 @@ earlier tree's kernels.
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
        [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--b4_b6]
        [--luby] [--b2_b9] [--geo] [--sssp_push] [--bfs_push] [--mst]
-       [--device cuda]
+       [--async] [--device cuda]
 """
 
 from __future__ import annotations
@@ -884,6 +904,34 @@ def luby_passes(graph, n: int) -> dict:
             "device": device_label(graph.device)}
 
 
+def async_lines(graph, n: int) -> list:
+    """``--async``'s lines: each sweep case timed, with its time a pass."""
+    from gunrock_tpu_torch.ops.kernels import async_sweep
+    from gunrock_tpu_torch.probes import async_cases as ac
+
+    rows = []
+    cases = ac.kernel_cases(graph, *ac.mesh_graphs(graph.device))
+    for name, (g, kernel, args) in cases.items():
+        fn = getattr(async_sweep, kernel)
+        res = fn(*args)
+        pr = kernel == "gs_sweep_pr"
+        # an earlier tree's wrappers count no passes of PageRank and no
+        # barriers (one pass a block a sweep there)
+        run = dict(getattr(async_sweep, "LAST_RUN", {}).get(kernel, {}))
+        passes = run.pop("block_passes", res[1] * ac.ASYNC_BLOCKS if pr
+                         else res[2])
+        n_bytes, n_ops = ac.bound_work(g, passes, 3 if pr else 2)
+        row = time_case("async_" + name, (lambda fn=fn, args=args: fn(*args),
+                                          n_bytes, n_ops, {}, {
+            "kernel": kernel, "vertices": g.n_vertices, "edges": g.n_edges,
+            "sweeps": res[1], "block_passes": passes, **run}), n, graph.device)
+        row["us_per_pass"] = row["ms"] * 1e3 / passes
+        if isinstance(row["device_ms"], float):
+            row["device_us_per_pass"] = row["device_ms"] * 1e3 / passes
+        rows.append(row)
+    return rows
+
+
 def build_layouts(graph) -> dict:
     from gunrock_tpu_torch.algorithms import color
     from gunrock_tpu_torch.ops.kernels.layout import (
@@ -935,9 +983,16 @@ def main(argv=None) -> int:
     p.add_argument("--mst", action="store_true",
                    help="time every min-cut pass of one MST run, and B7's "
                         "cases")
+    p.add_argument("--async", dest="async_", action="store_true",
+                   help="time only the async sweep kernels on the async "
+                        "path's seven cases")
     p.add_argument("--device", default="cuda")
     ns = p.parse_args(argv)
     graph = probe_graph(ns.scale, ns.device)
+    if ns.async_:
+        for row in async_lines(graph, ns.num_runs):
+            print(json.dumps(row), flush=True)
+        return 0
     layouts = build_layouts(graph)
     gen = torch.Generator(device=graph.device).manual_seed(1)
     timed = cases(graph, layouts, gen)
