@@ -33,7 +33,11 @@ Phases, each raising on failure:
    slab of the slabbed triangle count; with them the frontier-sparse
    semiring pass on every level of a BC search, the SpMM on every
    backward level of a BC batch, and the frontier-sparse SpMM on a row
-   block of A, as the dense SpGEMM calls it.
+   block of A, as the dense SpGEMM calls it. The banded gather also bit
+   for bit at its edge shapes (``probes/banded_cases.edge_cases``:
+   span_rows 1 and 200, the sink window at the table's last rows, indices
+   below and above their window, one block, blocks of 128, an idx view
+   off 16-byte alignment for the scalar instance).
    The probes' kernels likewise: the dense pass's floor modes (stream,
    gather) on the valued pull layout, the gather at every shape of the two
    gather probes, the bulk block copy at the dma probe's case and at one
@@ -197,13 +201,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 try:  # the bound column (the card's published peaks) and the profiles
     from gunrock_tpu_torch.probes import async_cases as ac
+    from gunrock_tpu_torch.probes import banded_cases
     from gunrock_tpu_torch.utils.roofline import bound_ms, roofline
     from gunrock_tpu_torch.utils.trace_stats import device_profile
 except ImportError as exc:  # run without the package beside it
     sys.exit(f"chip_smoke: gunrock_tpu_torch is not beside this script ({exc})")
 
 SCALE, EDGE_FACTOR, SEED, K = 18, 16, 1, 32
-TC_SLABS = 5  # slabs of the slabbed triangle-counting run
+TC_SLABS = banded_cases.TC_SLABS  # slabs of the slabbed triangle count
 CHECKED_RUNS = 20  # edge-shape runs on the range-checking build
 # the keys of the metrics JSON (the reference's schema "2022-10-28", as the
 # JAX package's utils/performance.py writes it)
@@ -1048,31 +1053,6 @@ def wstep_err(torch, what: str, got, want) -> float:
     return worst
 
 
-def banded_case(torch, gen, n_table: int, n_blocks: int, block_t: int,
-                span_rows: int, dev):
-    """(table2, idx, block_lo) for the banded gather: a random table
-    padded by ``pad_table``, every block's window at a random row, 90% of
-    its indices inside the window and the rest anywhere in the table or
-    before it (out of window: the kernel must return the clamped
-    element)."""
-    from gunrock_tpu_torch.ops.kernels.banded import pad_table
-
-    table = torch.randint(0, 1 << 30, (n_table,), generator=gen, device=dev,
-                          dtype=torch.int32)
-    table2 = torch.from_numpy(pad_table(table.cpu().numpy(), span_rows)).to(dev)
-    n_rows = -(-n_table // 128)
-    block_lo = torch.randint(0, n_rows, (n_blocks,), generator=gen,
-                             device=dev, dtype=torch.int32)
-    B = n_blocks * block_t
-    inside = torch.randint(0, span_rows * 128, (B,), generator=gen, device=dev)
-    anywhere = torch.randint(-128, table2.numel(), (B,), generator=gen,
-                             device=dev)
-    lo = torch.repeat_interleave(block_lo.long() * 128, block_t)
-    out = torch.rand(B, device=dev, generator=gen) < 0.1
-    idx = torch.where(out, anywhere, lo + inside).int()
-    return table2, idx, block_lo
-
-
 def compare_analysis_kernels(torch, graph, layouts, source: int,
                              block_rows: tuple, slab=None) -> dict:
     """The analysis family's kernels against their plain versions; raises
@@ -1152,9 +1132,11 @@ def compare_analysis_kernels(torch, graph, layouts, source: int,
                                          "that iterates")
 
     name = "banded_gather"
-    cases = [banded_case(torch, gen, 5000, 7, 256, 5, dev) + (256, 5),
-             banded_case(torch, gen, 200_000, 33, 2048, 37, dev) + (2048, 37),
-             banded_case(torch, gen, 300_000, 9, 2048, 120, dev) + (2048, 120)]
+    cases = [banded_cases.banded_case(gen, 5000, 7, 256, 5, dev) + (256, 5),
+             banded_cases.banded_case(gen, 200_000, 33, 2048, 37, dev)
+             + (2048, 37),
+             banded_cases.banded_case(gen, 300_000, 9, 2048, 120, dev)
+             + (2048, 120)]
     if slab is not None:
         cases.append(slab)
     for table2, idx, block_lo, block_t, span_rows in cases:
@@ -1228,6 +1210,26 @@ def compare_analysis_kernels(torch, graph, layouts, source: int,
     return errs
 
 
+def compare_banded_edges(torch, dev) -> dict:
+    """The banded gather bit for bit against its plain version at
+    ``banded_cases.edge_cases``' shapes: span_rows 1 and 200
+    (``tc.MAX_SPAN_ROWS``), the sink window at the table's last rows,
+    indices below and above their window (int32's extremes among them), a
+    single block, blocks of 128, and an idx view off 16-byte alignment
+    (the scalar instance). Returns {"banded_gather": max abs error}."""
+    from gunrock_tpu_torch.ops.kernels import banded
+
+    errs = {}
+    for name, (table2, idx, block_lo, block_t, span_rows) in (
+            banded_cases.edge_cases(dev).items()):
+        got, want = both(torch, banded.banded_gather,
+                         banded.banded_gather_plain, table2, idx, block_lo,
+                         span_rows=span_rows, block_t=block_t)
+        record(torch, errs, "banded_gather", got, want, True,
+               f"edge shape {name}")
+    return errs
+
+
 def check_edge_shapes(torch, dev) -> None:
     """The kernels at shapes the main path does not have: V = 1000 is no
     multiple of the window (128) or of a warp, so the last window and the
@@ -1295,7 +1297,7 @@ def check_edge_shapes(torch, dev) -> None:
     analysis = compare_analysis_kernels(
         torch, graph, layouts, int(np.argmax(np.diff(graph.host["row_offsets"]))),
         (64, 32))
-    for name, e in analysis.items():
+    for name, e in {**analysis, **compare_banded_edges(torch, dev)}.items():
         errs[name] = max(errs.get(name, 0.0), e)
     errs.update(compare_probe_kernels(torch, layouts, dev))
     empty = np.zeros(0, np.int32)
@@ -1366,7 +1368,9 @@ def check_edge_shapes(torch, dev) -> None:
     print(f"edge shapes (V={V}, W={W}, {layouts['unit'].n_chunks} chunks; "
           f"negative values; an empty row window; edgeless; spans of 3 "
           f"chunks; C=125; B5 at K=1, 8, 32, 33, 512; B4 at K=1, 4, 8, 32, "
-          f"33; the sweeps at 1 to 1000 blocks): max abs err {errs}")
+          f"33; the sweeps at 1 to 1000 blocks; B10 at span_rows 1 and "
+          f"200, the last rows, clamped both sides, one block, T=128, "
+          f"unaligned idx): max abs err {errs}")
 
 
 def compare_probe_kernels(torch, layouts, dev) -> dict:
@@ -1883,7 +1887,6 @@ def analysis_kernel_rows(torch, graph, layouts, timed) -> tuple:
     plain version, its bound and, for the gather, ``index_select`` on the
     same indices. Adds each timed call to ``timed``. Returns (rows, the
     errors of every kernel compare_analysis_kernels held)."""
-    from gunrock_tpu_torch.algorithms import tc
     from gunrock_tpu_torch.ops.kernels import banded, geo_step
 
     dev = graph.device
@@ -1891,25 +1894,10 @@ def analysis_kernel_rows(torch, graph, layouts, timed) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
 
     # one real slab of the slabbed sort-join: what the wrapper was given
-    slab = []
-    kernel = tc.banded_gather
-
-    def capture(table2, idx, block_lo, *, span_rows, block_t):
-        if not slab:
-            slab.append((table2, idx, block_lo, block_t, span_rows))
-        return kernel(table2, idx, block_lo, span_rows=span_rows,
-                      block_t=block_t)
-
-    rk = tc.ranked_dag(graph)
-    tc.banded_gather = capture
-    try:
-        tc.run(graph, max_wedges=-(-rk["n_wedges"] // TC_SLABS), warmup=False,
-               device=dev)
-    finally:
-        tc.banded_gather = kernel
-    table2, idx, block_lo, block_t, span_rows = slab[0]
+    slab = banded_cases.real_slab(graph)
+    table2, idx, block_lo, block_t, span_rows = slab
     errs = compare_analysis_kernels(torch, graph, layouts, 0, (512, 256),
-                                    slab[0])
+                                    slab)
     rows = {}
 
     # B9 on the geo path's first step: 10% of the vertices labeled
@@ -1953,8 +1941,7 @@ def analysis_kernel_rows(torch, graph, layouts, timed) -> tuple:
 
     # B10 on the captured slab; the library call gathers the same indices
     flat = table2.view(-1)
-    reach = int(idx.max()) - int(idx.min()) + 1
-    b, by = bound_ms(8 * idx.numel() + 4 * block_lo.numel() + 4 * reach)
+    b, by = bound_ms(banded_cases.bound_bytes(idx, block_lo))
     name = "banded_gather"
     max_abs_err(torch, banded.banded_gather(table2, idx, block_lo,
                                             span_rows=span_rows,

@@ -16,8 +16,10 @@ never reads outside the window. The caller keeps ``block_lo[g] + span_rows
 <= n_rows_pad`` (:func:`pad_table`).
 
 On the card a flat gather is native, so the window is the contract and
-not a correctness device: the kernel reads global memory directly (the
-window is L2-resident).
+not a correctness device: the kernel reads the table in global memory
+(L2-resident) from a persistent grid, 16-byte vectors of ``idx`` loaded
+ahead of their gathers and ``idx``/``out`` streamed past L2; an ``idx``
+view off 16-byte alignment takes the kernel's scalar instance.
 
 CUDA source: ``csrc/banded.cu``.
 """

@@ -145,6 +145,28 @@ x blocks): ``git archive`` the parent into ``_chip/parent/``, copy the
 two files into its ``gunrock_tpu_torch/probes/``, and run the probe from
 there.
 
+``--banded`` prints instead (no other case) one line for each slab of
+the banded gather, B10 (``banded_gather``): ``banded_real``, the first of
+the slabbed triangle count's five slabs on this graph (at R-MAT 18:
+40,925,184 positions, span_rows 37, a table of 3,775,104 ints; as
+``chip_smoke.py``'s kernel row captures it), ``banded_real_unaligned``
+(the same slab with idx a view one int off 16-byte alignment: the
+kernel's scalar instance), and ``banded_span1``, ``banded_span37``,
+``banded_span120``, ``banded_span200`` (synthetic slabs of 20,000 blocks
+of 2,048 over a table of the real one's size, span_rows 1 to
+``tc.MAX_SPAN_ROWS``); the inputs from ``probes/banded_cases.py``. Each
+has ``ms``, ``device_ms`` and ``kernels`` as above, ``bound_ms`` (idx
+and out 8 B a position, block_lo, the table's reach once),
+``share_of_bound`` (``bound_ms`` over ``device_ms``) and
+``index_select_ms`` and ``index_select_device_ms``: one
+``torch.index_select`` of the indices the kernel reads (the clamped
+ones). Every slab is first held bit for bit against
+``banded_gather_plain``. Then the line ``banded_tc``: three ``tc.run``
+times in one sort (``ms``) and in five slabs (``slabbed_ms``). Copied
+with ``banded_cases.py`` into an earlier tree's
+``gunrock_tpu_torch/probes/`` (a ``git archive`` of the parent in
+``_chip/parent/``), it times that tree's kernel on the same inputs.
+
 ``--sweep 4,8,16,32`` adds one line per P: b3_valued, b3_pr, b1_full, b8_hits
 and b5_color with both span tables cut at P
 (``BucketedEdges.with_span_chunks``); ``--k_tiles 4,8,16`` one line per K
@@ -156,7 +178,7 @@ earlier tree's kernels.
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
        [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--b4_b6]
        [--luby] [--b2_b9] [--geo] [--sssp_push] [--bfs_push] [--mst]
-       [--async] [--device cuda]
+       [--async] [--banded] [--device cuda]
 """
 
 from __future__ import annotations
@@ -932,6 +954,55 @@ def async_lines(graph, n: int) -> list:
     return rows
 
 
+def banded_lines(graph, n: int) -> list:
+    """``--banded``'s lines: each slab checked against the plain version,
+    then timed beside ``index_select``; then the triangle count's
+    times."""
+    from gunrock_tpu_torch.algorithms import tc
+    from gunrock_tpu_torch.ops.kernels import banded
+    from gunrock_tpu_torch.probes import banded_cases as bc
+
+    dev = graph.device
+    real = bc.real_slab(graph)
+    table2, idx, block_lo, block_t, span_rows = real
+    buf = torch.empty(idx.numel() + 1, dtype=idx.dtype, device=dev)
+    buf[1:] = idx
+    slabs = {"real": real,
+             "real_unaligned": (table2, buf[1:], block_lo, block_t, span_rows),
+             **bc.synthetic_slabs(dev)}
+    rows = []
+    for name, (table2, idx, block_lo, block_t, span_rows) in slabs.items():
+        def call(t2=table2, ix=idx, lo=block_lo, r=span_rows, t=block_t):
+            return banded.banded_gather(t2, ix, lo, span_rows=r, block_t=t)
+
+        if not torch.equal(call(), banded.banded_gather_plain(
+                table2, idx, block_lo, span_rows=span_rows, block_t=block_t)):
+            raise AssertionError(f"banded_{name}: not its plain version")
+        flat = table2.view(-1)
+        read = bc.read_indices(idx, block_lo, span_rows, block_t)
+        row = time_case("banded_" + name, (
+            call, bc.bound_bytes(idx, block_lo), 0,
+            {"index_select": lambda f=flat, r=read: f.index_select(0, r)},
+            {"positions": idx.numel(), "span_rows": span_rows,
+             "block_t": block_t, "table": flat.numel(),
+             "aligned": idx.data_ptr() % 16 == 0}), n, dev)
+        row["share_of_bound"] = (
+            row["bound_ms"] / row["device_ms"]
+            if isinstance(row["device_ms"], float) and "bound_ms" in row
+            else row["device_ms"])
+        rows.append(row)
+    rk = tc.ranked_dag(graph)
+    rows.append({
+        "probe": "pull", "case": "banded_tc", "wedges": rk["n_wedges"],
+        "slabs": bc.TC_SLABS,
+        "ms": [tc.run(graph, device=dev).elapsed_ms for _ in range(3)],
+        "slabbed_ms": [tc.run(graph, max_wedges=-(-rk["n_wedges"]
+                                                  // bc.TC_SLABS),
+                              device=dev).elapsed_ms for _ in range(3)],
+        "device": device_label(dev)})
+    return rows
+
+
 def build_layouts(graph) -> dict:
     from gunrock_tpu_torch.algorithms import color
     from gunrock_tpu_torch.ops.kernels.layout import (
@@ -986,13 +1057,17 @@ def main(argv=None) -> int:
     p.add_argument("--async", dest="async_", action="store_true",
                    help="time only the async sweep kernels on the async "
                         "path's seven cases")
+    p.add_argument("--banded", action="store_true",
+                   help="time only the banded gather on the triangle "
+                        "count's real slab and on synthetic slabs")
     p.add_argument("--device", default="cuda")
     ns = p.parse_args(argv)
     graph = probe_graph(ns.scale, ns.device)
-    if ns.async_:
-        for row in async_lines(graph, ns.num_runs):
-            print(json.dumps(row), flush=True)
-        return 0
+    for flag, lines in ((ns.async_, async_lines), (ns.banded, banded_lines)):
+        if flag:
+            for row in lines(graph, ns.num_runs):
+                print(json.dumps(row), flush=True)
+            return 0
     layouts = build_layouts(graph)
     gen = torch.Generator(device=graph.device).manual_seed(1)
     timed = cases(graph, layouts, gen)
