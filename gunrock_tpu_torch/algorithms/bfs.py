@@ -14,6 +14,13 @@ The JAX package runs each search as one compiled ``while_loop``; here the
 loop is Python, and each level reads one two-element tensor back to the
 host (the frontier's out-edge sum and size), which both picks push or
 pull and ends the loop.
+
+Spans (``utils/profiler.py``): ``bfs.run`` a call of :func:`run`, with
+``bfs.search`` (the timed search) and ``bfs.predecessors`` inside it; one
+``bfs.level`` a level of :func:`bfs_kernel_do` (its index, direction and
+the frontier's size and out-edges) and ``bfs.sync`` for each level read;
+``msbfs`` a call of :func:`msbfs_kernel`, with ``msbfs.level`` and
+``msbfs.sync``; ``kernel.bfs_push_step`` around the push step.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from gunrock_tpu_torch.ops.kernels.layout import build_auto_layout, pull_layout
 from gunrock_tpu_torch.ops.kernels.semiring import bucketed_semiring_spmv_sparse
 from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
 from gunrock_tpu_torch.utils.limits import UNREACHED
+from gunrock_tpu_torch.utils.profiler import annotate, host_read
 from gunrock_tpu_torch.utils.timer import timed
 
 _BLOCKS_PER_SM = 4
@@ -93,31 +101,33 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
     CUDA source: ``csrc/bfs_push.cu`` (one cooperative launch that
     spreads the frontier's out-edges over the whole grid)."""
     del edge_budget
-    dev = graph.device
-    V = graph.n_vertices
-    _build.check_tensor(front_mask, "front_mask", torch.bool, (V,), dev)
-    _build.check_tensor(distances, "distances", torch.int32, (V,), dev)
-    if dev.type == "cpu":
-        return bfs_push_step_plain(graph, front_mask, distances, iteration)
-    if dev.type != "cuda":
-        raise ValueError(f"no push kernel for device {dev}")
-    max_blocks = _BLOCKS_PER_SM * _build.sm_count(dev)
-    # fresh, so that it never aliases front_mask, which the kernel reads
-    # while it clears new_mask
-    new_mask = torch.empty(V, dtype=torch.bool, device=dev)
-    # block counts, queue, scan
-    scratch = torch.empty(2 * max_blocks + 2 * V, dtype=torch.int32, device=dev)
-    lib = _build.load("bfs_push", _SIGNATURES)
-    err = lib.gr_bfs_push_step(
-        _build.ptr(front_mask), V, graph.n_edges,
-        _build.ptr(graph.row_offsets),
-        _build.ptr(graph.col_indices), _build.ptr(distances),
-        _build.ptr(new_mask), int(iteration) + 1, _build.ptr(scratch),
-        max_blocks, _build.stream(dev),
-    )
-    _build.check(err, "bfs_push_step")
-    _build.LAUNCHES["bfs_push_step"] += 1
-    return new_mask, distances
+    with annotate("kernel.bfs_push_step"):
+        dev = graph.device
+        V = graph.n_vertices
+        _build.check_tensor(front_mask, "front_mask", torch.bool, (V,), dev)
+        _build.check_tensor(distances, "distances", torch.int32, (V,), dev)
+        if dev.type == "cpu":
+            return bfs_push_step_plain(graph, front_mask, distances, iteration)
+        if dev.type != "cuda":
+            raise ValueError(f"no push kernel for device {dev}")
+        max_blocks = _BLOCKS_PER_SM * _build.sm_count(dev)
+        # fresh, so that it never aliases front_mask, which the kernel
+        # reads while it clears new_mask
+        new_mask = torch.empty(V, dtype=torch.bool, device=dev)
+        # block counts, queue, scan
+        scratch = torch.empty(2 * max_blocks + 2 * V, dtype=torch.int32,
+                              device=dev)
+        lib = _build.load("bfs_push", _SIGNATURES)
+        err = lib.gr_bfs_push_step(
+            _build.ptr(front_mask), V, graph.n_edges,
+            _build.ptr(graph.row_offsets),
+            _build.ptr(graph.col_indices), _build.ptr(distances),
+            _build.ptr(new_mask), int(iteration) + 1, _build.ptr(scratch),
+            max_blocks, _build.stream(dev),
+        )
+        _build.check(err, "bfs_push_step")
+        _build.LAUNCHES["bfs_push_step"] += 1
+        return new_mask, distances
 
 
 def bfs_push_step_plain(graph: Graph, front_mask, distances, iteration):
@@ -182,18 +192,24 @@ def bfs_kernel_do(
     it = 0
     while it < max_it:
         # the level's one host read: out-edge sum and size of the frontier
-        out_edges, n_front = torch.stack(
-            [torch.where(front, deg, 0).sum(), front.sum()]
-        ).tolist()
+        out_edges, n_front = host_read("bfs", lambda: torch.stack(
+            [torch.where(front, deg, 0).sum(), front.sum()]))
         if n_front == 0:
             break
         if out_edges < edge_budget and n_front < edge_budget:
-            front, dist = bfs_push_step(graph, front, dist, it, edge_budget)
+            direction, lay = "push", None
+        elif layout_dense is not None and out_edges >= E // 2:
+            direction, lay = "pull_dense", layout_dense
+        elif layout is not None:
+            direction, lay = "pull", layout
         else:
-            lay = layout
-            if layout_dense is not None and out_edges >= E // 2:
-                lay = layout_dense
-            if lay is None:
+            direction, lay = "step", None
+        with annotate("bfs.level", level=it, direction=direction,
+                      n_front=n_front, out_edges=out_edges):
+            if direction == "push":
+                front, dist = bfs_push_step(graph, front, dist, it,
+                                            edge_budget)
+            elif lay is None:
                 front, dist, _ = bfs_step(graph, front, dist, None, it)
             else:
                 front, dist = _pull(lay, front, dist, it)
@@ -208,26 +224,28 @@ def msbfs_kernel(graph: Graph, sources, pull_layout=None,
     V = graph.n_vertices
     dev = graph.device
     max_it = V if max_iterations is None else max_iterations
-    if pull_layout is None:
-        h = graph.host
-        pull_layout = build_auto_layout(
-            h["col_indices"], h["edge_src"], np.ones(graph.n_edges, np.float32),
-            V, device=dev,
-        )
     src = torch.as_tensor(sources, device=dev).long()
     K = src.shape[0]
-    cols = torch.arange(K, device=dev)
-    dist = torch.full((V, K), UNREACHED, dtype=torch.int32, device=dev)
-    dist[src, cols] = 0
-    front = torch.zeros((V, K), dtype=torch.float32, device=dev)
-    front[src, cols] = 1.0
-    it = 0
-    while it < max_it and bool(front.any()):
-        reached = bucketed_spmm(pull_layout, front, exact=True) > 0.5
-        new = reached & (dist == UNREACHED)
-        dist.masked_fill_(new, it + 1)
-        front = new.to(torch.float32)
-        it += 1
+    with annotate("msbfs", sources=K):
+        if pull_layout is None:
+            h = graph.host
+            pull_layout = build_auto_layout(
+                h["col_indices"], h["edge_src"],
+                np.ones(graph.n_edges, np.float32), V, device=dev,
+            )
+        cols = torch.arange(K, device=dev)
+        dist = torch.full((V, K), UNREACHED, dtype=torch.int32, device=dev)
+        dist[src, cols] = 0
+        front = torch.zeros((V, K), dtype=torch.float32, device=dev)
+        front[src, cols] = 1.0
+        it = 0
+        while it < max_it and host_read("msbfs", front.any):
+            with annotate("msbfs.level", level=it, direction="pull"):
+                reached = bucketed_spmm(pull_layout, front, exact=True) > 0.5
+                new = reached & (dist == UNREACHED)
+                dist.masked_fill_(new, it + 1)
+                front = new.to(torch.float32)
+            it += 1
     return dist, it
 
 
@@ -304,39 +322,43 @@ def run(
     options take the direction-optimizing path over the bucketed kernels;
     predecessors then come from one post-pass. Other options run
     ``BfsEnactor``, which keeps predecessors as it goes."""
-    graph = graph.to(device)
-    if not 0 <= int(single_source) < graph.n_vertices:
-        raise ValueError(
-            f"source {single_source} out of range [0, {graph.n_vertices})"
-        )
-    single_source = int(single_source)
-    if options is None:
-        options = default_options()
-    if options.advance_direction != AdvanceDirection.OPTIMIZED:
-        enactor = BfsEnactor(BfsProblem(graph, Param(single_source)))
-        state, elapsed_ms = enactor.enact(warmup=warmup)
-        return Result(distances=state["distances"],
-                      predecessors=state["predecessors"],
-                      search_depth=int(state["iteration"]),
+    with annotate("bfs.run", sources=1):
+        graph = graph.to(device)
+        if not 0 <= int(single_source) < graph.n_vertices:
+            raise ValueError(
+                f"source {single_source} out of range [0, {graph.n_vertices})"
+            )
+        single_source = int(single_source)
+        if options is None:
+            options = default_options()
+        if options.advance_direction != AdvanceDirection.OPTIMIZED:
+            enactor = BfsEnactor(BfsProblem(graph, Param(single_source)))
+            state, elapsed_ms = enactor.enact(warmup=warmup)
+            return Result(distances=state["distances"],
+                          predecessors=state["predecessors"],
+                          search_depth=int(state["iteration"]),
+                          elapsed_ms=elapsed_ms)
+        layout = None
+        if options.load_balance == LoadBalance.PALLAS_MERGE_PATH:
+            layout = pull_layout(graph, unit=True)
+        with annotate("bfs.search"):
+            (dist, depth), elapsed_ms = timed(
+                graph.device,
+                lambda: bfs_kernel_do(graph, single_source, layout=layout),
+                warmup)
+        pred = _predecessors_from_distances(graph, dist)
+        return Result(distances=dist, predecessors=pred, search_depth=depth,
                       elapsed_ms=elapsed_ms)
-    layout = None
-    if options.load_balance == LoadBalance.PALLAS_MERGE_PATH:
-        layout = pull_layout(graph, unit=True)
-    (dist, depth), elapsed_ms = timed(
-        graph.device,
-        lambda: bfs_kernel_do(graph, single_source, layout=layout), warmup)
-    pred = _predecessors_from_distances(graph, dist)
-    return Result(distances=dist, predecessors=pred, search_depth=depth,
-                  elapsed_ms=elapsed_ms)
 
 
 def _predecessors_from_distances(graph: Graph, distances):
     """pred[v] = min in-neighbour u with dist[u] == dist[v] - 1."""
-    src = graph.csc_rows
-    d_src = distances[src]
-    ok = (d_src != UNREACHED) & (d_src + 1 == distances[graph.csc_dst])
-    pred = torch.full_like(distances, UNREACHED).scatter_reduce_(
-        0, graph.csc_dst.long(), torch.where(ok, src, UNREACHED), "amin")
-    return torch.where(
-        (pred == UNREACHED) | (distances == UNREACHED), -1, pred
-    ).to(torch.int32)
+    with annotate("bfs.predecessors"):
+        src = graph.csc_rows
+        d_src = distances[src]
+        ok = (d_src != UNREACHED) & (d_src + 1 == distances[graph.csc_dst])
+        pred = torch.full_like(distances, UNREACHED).scatter_reduce_(
+            0, graph.csc_dst.long(), torch.where(ok, src, UNREACHED), "amin")
+        return torch.where(
+            (pred == UNREACHED) | (distances == UNREACHED), -1, pred
+        ).to(torch.int32)

@@ -16,6 +16,13 @@ The JAX package runs each search as one compiled ``while_loop``; here the
 loop is Python and each iteration reads one small tensor back to the host,
 which both picks push or pull and ends the loop. Predecessors come from
 one post-pass, :func:`recover_predecessors`.
+
+Spans (``utils/profiler.py``): ``sssp.run`` a call of :func:`run`, with
+``sssp.search`` (the timed search) and ``sssp.predecessors`` inside it;
+one ``sssp.level`` a round of :func:`sssp_kernel_do` and
+:func:`sssp_kernel_delta` (its index, direction and the frontier's size
+and out-edges) and ``sssp.sync`` for each round's read;
+``kernel.sssp_push_step`` around the push step.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from gunrock_tpu_torch.ops.kernels.semiring import (
     bucketed_semiring_spmv,
     bucketed_semiring_spmv_sparse,
 )
+from gunrock_tpu_torch.utils.profiler import annotate, host_read
 from gunrock_tpu_torch.utils.timer import timed
 
 INF = float("inf")
@@ -111,30 +119,32 @@ def sssp_push_step(graph: Graph, front_mask, distances, edge_budget: int):
     CUDA source: ``csrc/sssp_push.cu`` (one cooperative launch that
     spreads the frontier's out-edges over the whole grid)."""
     del edge_budget
-    dev = graph.device
-    V = graph.n_vertices
-    _build.check_tensor(front_mask, "front_mask", torch.bool, (V,), dev)
-    _build.check_tensor(distances, "distances", torch.float32, (V,), dev)
-    if dev.type == "cpu":
-        return sssp_push_step_plain(graph, front_mask, distances)
-    if dev.type != "cuda":
-        raise ValueError(f"no SSSP push kernel for device {dev}")
-    max_blocks = _BLOCKS_PER_SM * _build.sm_count(dev)
-    new_dist = torch.empty(V, dtype=torch.float32, device=dev)
-    improved = torch.empty(V, dtype=torch.bool, device=dev)
-    # block counts, queue, scan
-    scratch = torch.empty(2 * max_blocks + 2 * V, dtype=torch.int32, device=dev)
-    lib = _build.load("sssp_push", _SIGNATURES)
-    err = lib.gr_sssp_push_step(
-        _build.ptr(front_mask), V, graph.n_edges,
-        _build.ptr(graph.row_offsets),
-        _build.ptr(graph.col_indices), _build.ptr(graph.values),
-        _build.ptr(distances), _build.ptr(new_dist), _build.ptr(improved),
-        _build.ptr(scratch), max_blocks, _build.stream(dev),
-    )
-    _build.check(err, "sssp_push_step")
-    _build.LAUNCHES["sssp_push_step"] += 1
-    return improved, new_dist
+    with annotate("kernel.sssp_push_step"):
+        dev = graph.device
+        V = graph.n_vertices
+        _build.check_tensor(front_mask, "front_mask", torch.bool, (V,), dev)
+        _build.check_tensor(distances, "distances", torch.float32, (V,), dev)
+        if dev.type == "cpu":
+            return sssp_push_step_plain(graph, front_mask, distances)
+        if dev.type != "cuda":
+            raise ValueError(f"no SSSP push kernel for device {dev}")
+        max_blocks = _BLOCKS_PER_SM * _build.sm_count(dev)
+        new_dist = torch.empty(V, dtype=torch.float32, device=dev)
+        improved = torch.empty(V, dtype=torch.bool, device=dev)
+        # block counts, queue, scan
+        scratch = torch.empty(2 * max_blocks + 2 * V, dtype=torch.int32,
+                              device=dev)
+        lib = _build.load("sssp_push", _SIGNATURES)
+        err = lib.gr_sssp_push_step(
+            _build.ptr(front_mask), V, graph.n_edges,
+            _build.ptr(graph.row_offsets),
+            _build.ptr(graph.col_indices), _build.ptr(graph.values),
+            _build.ptr(distances), _build.ptr(new_dist), _build.ptr(improved),
+            _build.ptr(scratch), max_blocks, _build.stream(dev),
+        )
+        _build.check(err, "sssp_push_step")
+        _build.LAUNCHES["sssp_push_step"] += 1
+        return improved, new_dist
 
 
 def sssp_push_step_plain(graph: Graph, front_mask, distances):
@@ -200,19 +210,27 @@ def sssp_kernel_do(
     limit = max_it if stop is None else stop
     while it < limit:
         # the iteration's one host read: out-edge sum and size of the frontier
-        out_edges, n_front = torch.stack(
-            [torch.where(front, deg, 0).sum(), front.sum()]
-        ).tolist()
+        out_edges, n_front = host_read("sssp", lambda: torch.stack(
+            [torch.where(front, deg, 0).sum(), front.sum()]))
         if n_front == 0:
             break
         if out_edges < edge_budget and n_front < edge_budget:
-            front, dist = sssp_push_step(graph, front, dist, edge_budget)
+            direction = "push"
         elif layout is None:
-            front, dist = sssp_step(graph, front, dist)
+            direction = "step"
         elif layout_dense is not None and out_edges >= E // 2:
-            front, dist = _pull(layout_dense, front, dist)
+            direction = "pull_dense"
         else:
-            front, dist = _pull(layout, front, dist)
+            direction = "pull"
+        with annotate("sssp.level", level=it, direction=direction,
+                      n_front=n_front, out_edges=out_edges):
+            if direction == "push":
+                front, dist = sssp_push_step(graph, front, dist, edge_budget)
+            elif direction == "step":
+                front, dist = sssp_step(graph, front, dist)
+            else:
+                front, dist = _pull(layout_dense if direction == "pull_dense"
+                                    else layout, front, dist)
         it += 1
     if return_state:
         return it, front, dist
@@ -240,7 +258,7 @@ def sssp_do_slabbed(
                                init_state=state,
                                stop=state[0] + rounds_per_dispatch,
                                return_state=True)
-        if not bool(state[1].any()) or state[0] >= V:
+        if not host_read("sssp", state[1].any) or state[0] >= V:
             break
     return state[2], state[0]
 
@@ -270,19 +288,24 @@ def sssp_kernel_delta(
     it = 0
     while it < max_it:
         front = improved & (dist < (k + 1.0) * delta)
-        n_improved, n_front, out_edges = torch.stack([
-            improved.sum(), front.sum(), torch.where(front, deg, 0).sum(),
-        ]).tolist()
+        n_improved, n_front, out_edges = host_read(
+            "sssp", lambda: torch.stack([improved.sum(), front.sum(),
+                                         torch.where(front, deg, 0).sum()]))
         if n_improved == 0:
             break
         if n_front == 0:
             k += 1.0  # bucket settled
         else:
-            if out_edges < edge_budget and n_front < edge_budget:
-                new_imp, dist = sssp_push_step(graph, front, dist, edge_budget)
-            else:
-                new_imp, dist = sssp_step(graph, front, dist)
-            improved = improved & ~front | new_imp
+            push = out_edges < edge_budget and n_front < edge_budget
+            with annotate("sssp.level", level=it,
+                          direction="push" if push else "step",
+                          n_front=n_front, out_edges=out_edges):
+                if push:
+                    new_imp, dist = sssp_push_step(graph, front, dist,
+                                                   edge_budget)
+                else:
+                    new_imp, dist = sssp_step(graph, front, dist)
+                improved = improved & ~front | new_imp
         it += 1
     return dist, it
 
@@ -310,16 +333,18 @@ def recover_predecessors(graph: Graph, distances):
     """One pass over edges: pred[v] = min src with dist[src] + w close to
     dist[v] (``torch.isclose`` at jnp's defaults, rtol 1e-5, atol 1e-8);
     -1 where none (unreached vertices and the source)."""
-    src = graph.csc_rows
-    d_src = distances[src.long()]
-    tight = torch.isclose(d_src + graph.csc_values,
-                          distances[graph.csc_dst.long()],
-                          rtol=1e-5, atol=1e-8) & (d_src < INF)
-    pred = torch.full(distances.shape, _INT_MAX, dtype=torch.int32,
-                      device=distances.device).scatter_reduce_(
-        0, graph.csc_dst.long(), torch.where(tight, src, _INT_MAX), "amin")
-    return torch.where((pred == _INT_MAX) | torch.isinf(distances), -1,
-                       pred).to(torch.int32)
+    with annotate("sssp.predecessors"):
+        src = graph.csc_rows
+        d_src = distances[src.long()]
+        tight = torch.isclose(d_src + graph.csc_values,
+                              distances[graph.csc_dst.long()],
+                              rtol=1e-5, atol=1e-8) & (d_src < INF)
+        pred = torch.full(distances.shape, _INT_MAX, dtype=torch.int32,
+                          device=distances.device).scatter_reduce_(
+            0, graph.csc_dst.long(), torch.where(tight, src, _INT_MAX),
+            "amin")
+        return torch.where((pred == _INT_MAX) | torch.isinf(distances), -1,
+                           pred).to(torch.int32)
 
 
 class SsspProblem(Problem):
@@ -362,36 +387,38 @@ def run(
     ``pad_value=_BIG`` pull layout with PALLAS_MERGE_PATH, the default);
     PALLAS_MERGE_PATH alone runs the dense min_plus pass per wave; anything
     else runs the enactor."""
-    graph = graph.to(device)
-    if not 0 <= int(single_source) < graph.n_vertices:
-        raise ValueError(
-            f"source {single_source} out of range [0, {graph.n_vertices})"
-        )
-    src = int(single_source)
-    if options is None:
-        options = default_options()
-    pallas = options.load_balance == LoadBalance.PALLAS_MERGE_PATH
-    if options.load_balance == LoadBalance.BUCKETING:
-        def search():
-            return sssp_kernel_delta(graph, src)
-    elif options.advance_direction == AdvanceDirection.OPTIMIZED:
-        layout = pull_layout(graph, pad_value=_BIG) if pallas else None
+    with annotate("sssp.run", sources=1):
+        graph = graph.to(device)
+        if not 0 <= int(single_source) < graph.n_vertices:
+            raise ValueError(
+                f"source {single_source} out of range [0, {graph.n_vertices})"
+            )
+        src = int(single_source)
+        if options is None:
+            options = default_options()
+        pallas = options.load_balance == LoadBalance.PALLAS_MERGE_PATH
+        if options.load_balance == LoadBalance.BUCKETING:
+            def search():
+                return sssp_kernel_delta(graph, src)
+        elif options.advance_direction == AdvanceDirection.OPTIMIZED:
+            layout = pull_layout(graph, pad_value=_BIG) if pallas else None
 
-        def search():
-            return sssp_kernel_do(graph, src, layout=layout)
-    elif pallas:
-        layout = pull_layout(graph, pad_value=_BIG)
+            def search():
+                return sssp_kernel_do(graph, src, layout=layout)
+        elif pallas:
+            layout = pull_layout(graph, pad_value=_BIG)
 
-        def search():
-            return sssp_kernel_pallas(graph, src, layout=layout)
-    else:
-        enactor = SsspEnactor(SsspProblem(graph, Param(src)))
-        state, elapsed_ms = enactor.enact(warmup=warmup)
-        return Result(distances=state["distances"],
-                      predecessors=state["predecessors"],
-                      search_depth=int(state["iteration"]),
-                      elapsed_ms=elapsed_ms)
-    (dist, depth), elapsed_ms = timed(graph.device, search, warmup)
-    return Result(distances=dist,
-                  predecessors=recover_predecessors(graph, dist),
-                  search_depth=int(depth), elapsed_ms=elapsed_ms)
+            def search():
+                return sssp_kernel_pallas(graph, src, layout=layout)
+        else:
+            enactor = SsspEnactor(SsspProblem(graph, Param(src)))
+            state, elapsed_ms = enactor.enact(warmup=warmup)
+            return Result(distances=state["distances"],
+                          predecessors=state["predecessors"],
+                          search_depth=int(state["iteration"]),
+                          elapsed_ms=elapsed_ms)
+        with annotate("sssp.search"):
+            (dist, depth), elapsed_ms = timed(graph.device, search, warmup)
+        return Result(distances=dist,
+                      predecessors=recover_predecessors(graph, dist),
+                      search_depth=int(depth), elapsed_ms=elapsed_ms)

@@ -14,6 +14,10 @@ The sweeps are ``ops/kernels/async_sweep.py``'s kernels: on the card the
 whole multi-sweep loop of a search is one launch, and the host reads the
 counts once, at the end, as the JAX package's one ``lax.while_loop``
 does.
+
+Spans (``utils/profiler.py``): ``async.sssp`` a call of :func:`sssp_async`
+(``async.bfs`` of :func:`bfs_async`), with the kernel's
+``kernel.gs_sweep_min`` and its one read, ``async.sync``, inside it.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from gunrock_tpu_torch.graph import Graph
 from gunrock_tpu_torch.ops.kernels.async_sweep import gs_sweep_min, gs_sweep_pr
 from gunrock_tpu_torch.utils.limits import UNREACHED
+from gunrock_tpu_torch.utils.profiler import annotate
 
 
 def _block_plan(graph: Graph, n_blocks: int):
@@ -63,23 +68,25 @@ def _run(graph: Graph, single_source: int, n_blocks: int, max_sweeps,
     n_blocks = max(1, min(n_blocks, V))
     if not (0 <= single_source < V):
         raise ValueError(f"source {single_source} out of range [0, {V})")
-    rank = None
-    if ordering == "rcm":
-        graph, rank, ro = _rcm(graph)
-        single_source = int(ro.rank[single_source])
-    elif ordering != "natural":
-        raise ValueError(f"unknown ordering {ordering!r}")
-    values = torch.ones_like(graph.csc_values) if unit else graph.csc_values
-    v_starts, e_starts = _block_plan(graph, n_blocks)
-    dist0 = torch.full((V,), float("inf"), dtype=torch.float32,
-                       device=graph.device)
-    dist0[single_source] = 0.0
-    max_sweeps = 2 * V if max_sweeps is None else max_sweeps
-    dist, sweeps, passes = gs_sweep_min(
-        graph.csc_rows, values, graph.csc_dst, v_starts, e_starts, dist0,
-        max_sweeps)
-    if rank is not None:
-        dist = dist[rank.long()]  # back to input vertex ids
+    with annotate("async.bfs" if unit else "async.sssp", sources=1):
+        rank = None
+        if ordering == "rcm":
+            graph, rank, ro = _rcm(graph)
+            single_source = int(ro.rank[single_source])
+        elif ordering != "natural":
+            raise ValueError(f"unknown ordering {ordering!r}")
+        values = (torch.ones_like(graph.csc_values) if unit
+                  else graph.csc_values)
+        v_starts, e_starts = _block_plan(graph, n_blocks)
+        dist0 = torch.full((V,), float("inf"), dtype=torch.float32,
+                           device=graph.device)
+        dist0[single_source] = 0.0
+        max_sweeps = 2 * V if max_sweeps is None else max_sweeps
+        dist, sweeps, passes = gs_sweep_min(
+            graph.csc_rows, values, graph.csc_dst, v_starts, e_starts, dist0,
+            max_sweeps)
+        if rank is not None:
+            dist = dist[rank.long()]  # back to input vertex ids
     return dist, sweeps, passes
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``gunrock_tpu/graph/build.py``: both CSR and CSC views (plus
 the expanded COO segment-id arrays) are computed on the host once with
-numpy and moved to ``device`` as torch tensors.
+numpy and moved to ``device`` as torch tensors. A build is the span
+``graph.build`` (``utils/profiler.py``), with its vertices and slots.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from gunrock_tpu_torch.formats import Coo, Csc, Csr, coo_to_csr, csr_to_csc
 from gunrock_tpu_torch.formats.formats import offsets_to_indices
 from gunrock_tpu_torch.graph.graph import Graph
 from gunrock_tpu_torch.graph.properties import GraphProperties
+from gunrock_tpu_torch.utils.profiler import annotate
 
 
 def build_graph_from_arrays(
@@ -49,7 +51,14 @@ def build_graph(
     dev = resolve(device)  # fail before any host work when there is no card
     if properties is None:
         properties = GraphProperties()
+    with annotate("graph.build") as span:
+        graph = _graph_from(fmt, properties, dev)
+        span.set(vertices=graph.n_vertices, slots=graph.n_edges)
+    return graph
 
+
+def _graph_from(fmt, properties: GraphProperties, dev) -> Graph:
+    """The graph of ``fmt`` on ``dev``: the body of :func:`build_graph`."""
     if isinstance(fmt, Coo):
         csr = coo_to_csr(fmt)
     elif isinstance(fmt, Csc):

@@ -12,6 +12,9 @@ gather:
     rg, ro = degree_sort(graph)
     dist2, it = bfs_kernel_do(rg, int(ro.rank[src]), layout=...)
     dist = dist2[ro.rank]          # dist[v] = dist2[rank[v]]
+
+Each relabeling is a span (``utils/profiler.py``), ``graph.degree_sort``
+or ``graph.rcm``, with the ``graph.build`` of the relabeled graph inside.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 from gunrock_tpu_torch.formats import Coo
 from gunrock_tpu_torch.graph.build import build_graph
 from gunrock_tpu_torch.graph.graph import Graph
+from gunrock_tpu_torch.utils.profiler import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,22 +41,23 @@ def degree_sort(graph: Graph) -> tuple[Graph, Reordering]:
     the direction-optimizing BFS's smaller push budget."""
     h = graph.host
     V = graph.n_vertices
-    out_deg = np.diff(h["row_offsets"])
-    in_deg = np.bincount(h["col_indices"], minlength=V)
-    order = np.argsort(-(out_deg + in_deg), kind="stable").astype(np.int32)
-    rank = np.empty(V, np.int32)
-    rank[order] = np.arange(V, dtype=np.int32)
-    g2 = build_graph(
-        Coo(
-            n_rows=V,
-            n_cols=V,
-            row_indices=rank[h["edge_src"]],
-            col_indices=rank[h["col_indices"]],
-            values=h["values"],
-        ),
-        properties=dataclasses.replace(graph.properties, hub_ordered=True),
-        device=graph.device,
-    )
+    with annotate("graph.degree_sort", vertices=V, slots=graph.n_edges):
+        out_deg = np.diff(h["row_offsets"])
+        in_deg = np.bincount(h["col_indices"], minlength=V)
+        order = np.argsort(-(out_deg + in_deg), kind="stable").astype(np.int32)
+        rank = np.empty(V, np.int32)
+        rank[order] = np.arange(V, dtype=np.int32)
+        g2 = build_graph(
+            Coo(
+                n_rows=V,
+                n_cols=V,
+                row_indices=rank[h["edge_src"]],
+                col_indices=rank[h["col_indices"]],
+                values=h["values"],
+            ),
+            properties=dataclasses.replace(graph.properties, hub_ordered=True),
+            device=graph.device,
+        )
     return g2, Reordering(order=order, rank=rank)
 
 
@@ -68,20 +73,23 @@ def rcm_sort(graph: Graph) -> tuple[Graph, Reordering]:
 
     h = graph.host
     V = graph.n_vertices
-    cols = h["col_indices"]
-    A = sp.csr_matrix(
-        (np.ones(len(cols), np.float32), cols, h["row_offsets"]), shape=(V, V)
-    )
-    order = np.asarray(
-        csg.reverse_cuthill_mckee(A, symmetric_mode=graph.properties.symmetric),
-        np.int32,
-    )
-    rank = np.empty(V, np.int32)
-    rank[order] = np.arange(V, dtype=np.int32)
-    g2 = build_graph(
-        Coo(n_rows=V, n_cols=V, row_indices=rank[h["edge_src"]],
-            col_indices=rank[cols], values=h["values"]),
-        properties=graph.properties,
-        device=graph.device,
-    )
+    with annotate("graph.rcm", vertices=V, slots=graph.n_edges):
+        cols = h["col_indices"]
+        A = sp.csr_matrix(
+            (np.ones(len(cols), np.float32), cols, h["row_offsets"]),
+            shape=(V, V)
+        )
+        order = np.asarray(
+            csg.reverse_cuthill_mckee(
+                A, symmetric_mode=graph.properties.symmetric),
+            np.int32,
+        )
+        rank = np.empty(V, np.int32)
+        rank[order] = np.arange(V, dtype=np.int32)
+        g2 = build_graph(
+            Coo(n_rows=V, n_cols=V, row_indices=rank[h["edge_src"]],
+                col_indices=rank[cols], values=h["values"]),
+            properties=graph.properties,
+            device=graph.device,
+        )
     return g2, Reordering(order=order, rank=rank)

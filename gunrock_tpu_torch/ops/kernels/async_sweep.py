@@ -20,6 +20,10 @@ end, with the grid barriers the kernel passed and its grid's shape
 (``LAST_RUN``). The plain versions below are Python loops that mirror the JAX code
 line for line, with one host read a block pass; a wrapper given CPU
 tensors runs them.
+
+Spans (``utils/profiler.py``): ``kernel.gs_sweep_min`` around that
+wrapper, with ``block_passes`` and ``grid_barriers`` from ``LAST_RUN`` on
+the card, and ``async.sync`` around the one read of the counts.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import ctypes
 import torch
 
 from gunrock_tpu_torch.ops.kernels import _build
+from gunrock_tpu_torch.utils.profiler import annotate, host_read
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -66,7 +71,7 @@ def _launched(err: int, what: str, out) -> tuple:
                            "(cudaDevAttrCooperativeLaunch)")
     _build.check(err, what)
     _build.LAUNCHES[what] += 1
-    sweeps, passes, barriers, ctas, cluster = out.tolist()
+    sweeps, passes, barriers, ctas, cluster = host_read("async", out)
     LAST_RUN[what] = {"block_passes": passes, "grid_barriers": barriers,
                       "ctas": ctas, "cluster_ctas": cluster}
     return sweeps, passes
@@ -79,30 +84,34 @@ def gs_sweep_min(csc_rows, csc_values, csc_dst, v_starts, e_starts,
     once (forward on even sweeps, backward on odd ones), and each block
     repeats passes to its local fixed point; ``block_passes`` counts them
     all."""
-    V = dist0.shape[0]
-    dev, E, n_blocks = _check_plan(csc_rows, csc_values, csc_dst, v_starts,
-                                   e_starts, V)
-    _build.check_tensor(dist0, "dist0", torch.float32, (V,), dev)
-    if dev.type == "cpu":
-        return gs_sweep_min_plain(csc_rows, csc_values, csc_dst, v_starts,
-                                  e_starts, dist0, max_sweeps)
-    if dev.type != "cuda":
-        raise ValueError(f"no gs_sweep_min kernel for device {dev}")
-    max_grid = _build.sm_count(dev)
-    dist = torch.empty(V, dtype=torch.float32, device=dev)
-    # the barrier's slots and counters, then R[0..2]
-    scratch = torch.empty(4 * max_grid + 4 + 3 * V, dtype=torch.float32,
-                          device=dev)
-    out = torch.empty(5, dtype=torch.int64, device=dev)
-    lib = _build.load("async_sweep", _SIGNATURES)
-    err = lib.gr_gs_sweep_min(
-        _build.ptr(csc_rows), _build.ptr(csc_values), _build.ptr(csc_dst),
-        _build.ptr(v_starts), _build.ptr(e_starts), _build.ptr(dist0),
-        _build.ptr(dist), _build.ptr(scratch), _build.ptr(out), V, E,
-        n_blocks, int(max_sweeps), max_grid, _build.stream(dev),
-    )
-    sweeps, passes = _launched(err, "gs_sweep_min", out)
-    return dist, sweeps, passes
+    with annotate("kernel.gs_sweep_min") as span:
+        V = dist0.shape[0]
+        dev, E, n_blocks = _check_plan(csc_rows, csc_values, csc_dst,
+                                       v_starts, e_starts, V)
+        _build.check_tensor(dist0, "dist0", torch.float32, (V,), dev)
+        if dev.type == "cpu":
+            return gs_sweep_min_plain(csc_rows, csc_values, csc_dst,
+                                      v_starts, e_starts, dist0, max_sweeps)
+        if dev.type != "cuda":
+            raise ValueError(f"no gs_sweep_min kernel for device {dev}")
+        max_grid = _build.sm_count(dev)
+        dist = torch.empty(V, dtype=torch.float32, device=dev)
+        # the barrier's slots and counters, then R[0..2]
+        scratch = torch.empty(4 * max_grid + 4 + 3 * V, dtype=torch.float32,
+                              device=dev)
+        out = torch.empty(5, dtype=torch.int64, device=dev)
+        lib = _build.load("async_sweep", _SIGNATURES)
+        err = lib.gr_gs_sweep_min(
+            _build.ptr(csc_rows), _build.ptr(csc_values), _build.ptr(csc_dst),
+            _build.ptr(v_starts), _build.ptr(e_starts), _build.ptr(dist0),
+            _build.ptr(dist), _build.ptr(scratch), _build.ptr(out), V, E,
+            n_blocks, int(max_sweeps), max_grid, _build.stream(dev),
+        )
+        sweeps, passes = _launched(err, "gs_sweep_min", out)
+        last = LAST_RUN["gs_sweep_min"]
+        span.set(block_passes=last["block_passes"],
+                 grid_barriers=last["grid_barriers"])
+        return dist, sweeps, passes
 
 
 def gs_sweep_min_plain(csc_rows, csc_values, csc_dst, v_starts, e_starts,

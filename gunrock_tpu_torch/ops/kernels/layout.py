@@ -30,6 +30,11 @@ argsort of ``chunk_cb``), and the same :func:`span_table` over
 ``chunk_cb[chunk_by_cb]`` cuts each column block's run of that list into
 spans (``col_span_first_chunk`` indexes ``chunk_by_cb``;
 ``cb_first_span`` names each column block's spans).
+
+Spans (``utils/profiler.py``): the build of a graph's cached layout is
+``layout.pull`` (``layout.push``), with its kind, window and chunk, and
+the host sort and bucketing of :func:`build_bucketed_layout` inside it is
+``layout.sort``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from gunrock_tpu_torch.device import DEFAULT, resolve
+from gunrock_tpu_torch.utils.profiler import annotate
 
 DATA_FIELDS = ("row_local", "col_local", "values", "chunk_rb", "chunk_cb",
                "rb_occupied", "src_bits", "dst_bits")
@@ -204,6 +210,26 @@ def build_bucketed_layout(rows, cols, values, n_vertices: int,
     int64[n_edges] the slot each input edge went to), for a caller that
     keeps per-edge data of another type beside the layout."""
     device = resolve(device)
+    with annotate("layout.sort"):
+        data, dest, order, n_chunks = _bucket(rows, cols, values, n_vertices,
+                                              window, chunk, pad_value)
+    n_rb = -(-n_vertices // window)
+    layout = BucketedEdges.from_arrays(
+        data, window=window, chunk=chunk, n_chunks=n_chunks,
+        n_row_blocks=n_rb, n_col_blocks=n_rb, n_vertices=n_vertices,
+        device=device)
+    if not return_slots:
+        return layout
+    slots = np.empty(dest.size, dtype=np.int64)
+    slots[order] = dest
+    return layout, slots
+
+
+def _bucket(rows, cols, values, n_vertices: int, window: int, chunk: int,
+            pad_value: float):
+    """The host part of :func:`build_bucketed_layout`: (the eight arrays
+    of ``DATA_FIELDS``, each edge's slot in sorted order, the sort order,
+    the chunk count)."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     values = np.asarray(values, dtype=np.float32)
@@ -249,15 +275,7 @@ def build_bucketed_layout(rows, cols, values, n_vertices: int,
         "dst_bits": _pack_subblock_bits(dest // chunk, rows - rb * window,
                                         window, n_chunks),
     }
-    layout = BucketedEdges.from_arrays(
-        data, window=window, chunk=chunk, n_chunks=n_chunks,
-        n_row_blocks=n_rb, n_col_blocks=n_cb, n_vertices=n_vertices,
-        device=device)
-    if not return_slots:
-        return layout
-    slots = np.empty(rows.size, dtype=np.int64)
-    slots[order] = dest
-    return layout, slots
+    return data, dest, order, n_chunks
 
 
 def build_auto_layout(rows, cols, values, n_vertices: int,
@@ -292,17 +310,19 @@ def _graph_layout(graph, kind: str, window, chunk, pad_value, unit):
     # the defaults spelled out or left None: one cache entry
     key = (kind, window, chunk, float(pad_value), unit)
     if key not in graph.layouts:
-        h = graph.host
-        # push: rows = sources, cols = destinations; pull: the transpose
-        rows, cols = h["edge_src"], h["col_indices"]
-        if kind == "pull":
-            rows, cols = cols, rows
-        vals = np.ones(graph.n_edges, np.float32) if unit else h["values"]
-        graph.layouts[key] = build_bucketed_layout(
-            rows, cols, vals, graph.n_vertices,
-            window=window, chunk=chunk, pad_value=pad_value,
-            device=graph.device,
-        )
+        with annotate(f"layout.{kind}", kind="unit" if unit else "valued",
+                      window=window, chunk=chunk):
+            h = graph.host
+            # push: rows = sources, cols = destinations; pull: the transpose
+            rows, cols = h["edge_src"], h["col_indices"]
+            if kind == "pull":
+                rows, cols = cols, rows
+            vals = np.ones(graph.n_edges, np.float32) if unit else h["values"]
+            graph.layouts[key] = build_bucketed_layout(
+                rows, cols, vals, graph.n_vertices,
+                window=window, chunk=chunk, pad_value=pad_value,
+                device=graph.device,
+            )
     return graph.layouts[key]
 
 

@@ -31,6 +31,9 @@ block per span of the layout's span table reduces its chunks into the row
 window in shared memory (the max/min pass into two windows, max and min),
 and a second pass combines the spans of each row block into y (ymax and
 ymin), which the kernels write whole.
+
+Spans (``utils/profiler.py``): ``kernel.bucketed_semiring_spmv_sparse``
+around that wrapper, its chunk plan included.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from gunrock_tpu_torch.ops.kernels import _build
 from gunrock_tpu_torch.ops.kernels.chunkplan import chunk_activity, chunk_activity_plain
 from gunrock_tpu_torch.ops.kernels.layout import BucketedEdges, slot_indices
+from gunrock_tpu_torch.utils.profiler import annotate
 
 _BIG = 3.0e38  # f32-safe infinity stand-in (keeps arithmetic finite)
 
@@ -182,22 +186,23 @@ def bucketed_semiring_spmv_sparse(
     """f32[V]: the semiring pull over the chunks ``active`` (and
     ``out_mask``) select. See the module docstring for the contract."""
     del exact  # f32 throughout covers the bf16-exact mode
-    dev = layout.device
-    V = layout.n_vertices
-    _build.check_tensor(x, "x", torch.float32, (V,), dev)
-    _build.check_tensor(active, "active", torch.bool, (V,), dev)
-    if out_mask is not None:
-        _build.check_tensor(out_mask, "out_mask", torch.bool, (V,), dev)
-    if layout.n_chunks == 0:
-        return _empty_result(V, semiring, dev)
-    if dev.type == "cpu":
-        return bucketed_semiring_spmv_sparse_plain(
-            layout, x, active, semiring, out_mask, unit=unit)
-    if dev.type != "cuda":
-        raise ValueError(f"no semiring kernel for device {dev}")
-    ch_act = chunk_activity(layout, active, out_mask, queue=False)[0]
-    return _finish(_pull(layout, x, semiring, unit, ch_act,
-                         "bucketed_semiring_spmv_sparse"), V, semiring)
+    with annotate("kernel.bucketed_semiring_spmv_sparse"):
+        dev = layout.device
+        V = layout.n_vertices
+        _build.check_tensor(x, "x", torch.float32, (V,), dev)
+        _build.check_tensor(active, "active", torch.bool, (V,), dev)
+        if out_mask is not None:
+            _build.check_tensor(out_mask, "out_mask", torch.bool, (V,), dev)
+        if layout.n_chunks == 0:
+            return _empty_result(V, semiring, dev)
+        if dev.type == "cpu":
+            return bucketed_semiring_spmv_sparse_plain(
+                layout, x, active, semiring, out_mask, unit=unit)
+        if dev.type != "cuda":
+            raise ValueError(f"no semiring kernel for device {dev}")
+        ch_act = chunk_activity(layout, active, out_mask, queue=False)[0]
+        return _finish(_pull(layout, x, semiring, unit, ch_act,
+                             "bucketed_semiring_spmv_sparse"), V, semiring)
 
 
 def bucketed_semiring_spmv_sparse_plain(

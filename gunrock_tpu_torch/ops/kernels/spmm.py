@@ -22,6 +22,9 @@ send are kept once (the dense pass sorts them by row), then one block per
 reduces its part of them into the tile in shared memory and adds the tile
 into Y. Where :func:`walks` says so, the dense pass's tile pass walks the
 span's metadata itself instead of a kept list.
+
+Spans (``utils/profiler.py``): ``kernel.bucketed_spmm`` around the dense
+pass's wrapper.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from gunrock_tpu_torch.ops.kernels import _build
 from gunrock_tpu_torch.ops.kernels.chunkplan import chunk_activity, chunk_activity_plain
 from gunrock_tpu_torch.ops.kernels.layout import BucketedEdges, slot_indices
 from gunrock_tpu_torch.ops.kernels.semiring import MAX_WINDOW, check_window
+from gunrock_tpu_torch.utils.profiler import annotate
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -140,22 +144,24 @@ def bucketed_spmm(layout: BucketedEdges, x: torch.Tensor,
     metadata (:func:`tile_shape` and :func:`walks` when None), to measure
     or test it otherwise."""
     del exact  # f32 throughout covers the bf16-exact mode
-    dev = layout.device
-    K = _check_x(layout, x)
-    if layout.n_chunks == 0:
-        return torch.zeros((layout.n_vertices, K), dtype=torch.float32,
-                           device=dev)
-    if dev.type == "cpu":
-        return bucketed_spmm_plain(layout, x)
-    if dev.type != "cuda":
-        raise ValueError(f"no SpMM kernel for device {dev}")
-    kt, rows = tile_shape(K, layout.window, sort=True)
-    if k_tile_cols is not None:
-        kt, rows = k_tile_cols, K_TILE_BYTES // (4 * k_tile_cols)
-    rows = min(rows if tile_rows is None else tile_rows, layout.window)
-    if walk is None:
-        walk = walks(-(-K // kt), -(-layout.window // rows))
-    return _launch(layout, x, None, kt, rows, walk, True, "bucketed_spmm")
+    with annotate("kernel.bucketed_spmm"):
+        dev = layout.device
+        K = _check_x(layout, x)
+        if layout.n_chunks == 0:
+            return torch.zeros((layout.n_vertices, K), dtype=torch.float32,
+                               device=dev)
+        if dev.type == "cpu":
+            return bucketed_spmm_plain(layout, x)
+        if dev.type != "cuda":
+            raise ValueError(f"no SpMM kernel for device {dev}")
+        kt, rows = tile_shape(K, layout.window, sort=True)
+        if k_tile_cols is not None:
+            kt, rows = k_tile_cols, K_TILE_BYTES // (4 * k_tile_cols)
+        rows = min(rows if tile_rows is None else tile_rows, layout.window)
+        if walk is None:
+            walk = walks(-(-K // kt), -(-layout.window // rows))
+        return _launch(layout, x, None, kt, rows, walk, True,
+                       "bucketed_spmm")
 
 
 def _plain(layout: BucketedEdges, x: torch.Tensor, ch_act) -> torch.Tensor:

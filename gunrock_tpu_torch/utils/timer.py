@@ -5,7 +5,8 @@ On a CUDA device it records CUDA events on the current stream and waits
 for the end event, so the time covers the device work and not only its
 enqueue. On the CPU it reads the host clock. ``end(*arrays)`` also waits
 for the devices of the CUDA tensors it is given, as the JAX package's
-``end`` blocks on its arrays.
+``end`` blocks on its arrays. Each wait is a ``timer.sync`` span
+(``utils/profiler.host_read``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import time
 
 import torch
+
+from gunrock_tpu_torch.utils.profiler import host_read
 
 
 def _cuda_devices(arrays) -> set:
@@ -47,11 +50,11 @@ class Timer:
         """Wait for the work issued since ``begin()`` and for the devices
         of the CUDA tensors in ``arrays``; return milliseconds."""
         for dev in _cuda_devices(arrays):
-            torch.cuda.synchronize(dev)
+            host_read("timer", dev)
         if self._cuda:
             stop = torch.cuda.Event(enable_timing=True)
             stop.record()
-            stop.synchronize()
+            host_read("timer", stop)
             self._ms = self._t0.elapsed_time(stop)
         else:
             self._ms = (time.perf_counter() - self._t0) * 1e3
