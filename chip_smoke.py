@@ -1601,6 +1601,7 @@ def check_kernels(torch, graph, layouts):
         bound_ms=b, bound_by=by, library_ms=None)
     print(f"push step input: {q.numel()} frontier vertices, {n_edges_q} "
           f"out-edges, {n_new} new")
+    rows.update(predecessor_rows(torch, graph, layouts, timed))
     rows.update(family_kernel_rows(torch, graph, layouts, timed))
     frontier_rows, frontier_errs = frontier_kernel_rows(torch, graph, layouts,
                                                        timed)
@@ -1633,6 +1634,77 @@ def check_kernels(torch, graph, layouts):
             k: us / 20 for k, (us, _) in prof.get("top_us", {}).items()}
     for r in rows.values():
         r.setdefault("library_device_ms", None)
+    return rows
+
+
+def predecessor_rows(torch, graph, layouts, timed) -> dict:
+    """The predecessor kernel of BFS and of SSSP at the main path's shape.
+    Held bit for bit (``torch.equal``) against the plain pass, in the
+    normal and the checked build: on the distances of the DO searches
+    (``bfs_kernel_do``, ``sssp_kernel_do``) from the in-neighbour in the
+    middle of the longest CSC run (so that run's one BFS-tight slot sits
+    mid-run) and from four random sources, and on
+    ``probes/predecessor_cases.py``'s graphs. Then timed on the first
+    random source's distances beside the plain pass and the early exit's
+    byte bound. Adds each timed call to ``timed``."""
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import bfs, sssp
+    from gunrock_tpu_torch.ops.kernels import _build
+    from gunrock_tpu_torch.ops.kernels import predecessors as P
+    from gunrock_tpu_torch.probes import predecessor_cases
+
+    off, csc_rows = graph.host["csc_offsets"], graph.host["csc_rows"]
+    top = int(np.argmax(np.diff(off)))
+    live = torch.nonzero(graph.out_degrees().cpu() > 0).flatten()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    sources = [int(csc_rows[(off[top] + off[top + 1]) // 2])] + live[
+        torch.randperm(live.numel(), generator=gen)[:4]].tolist()
+    kernel = {"bfs": P.bfs_predecessors, "sssp": P.sssp_predecessors}
+    dists = {
+        "bfs": [bfs.bfs_kernel_do(graph, s, layout=layouts["unit"])[0]
+                for s in sources],
+        "sssp": [sssp.sssp_kernel_do(graph, s, layout=layouts["big"])[0]
+                 for s in sources]}
+    cases = [(f"DO search from {s}", graph, kind, d)
+             for kind in dists for s, d in zip(sources, dists[kind])]
+    cases += [(name, *case) for name, case in
+              predecessor_cases.cases(graph.device).items()]
+    for checked in (False, True):
+        _build.use_checked(checked)
+        try:
+            for what, g, kind, d in cases:
+                got = kernel[kind](g, d)
+                torch.cuda.synchronize()
+                want = P.predecessors_plain(g, d, kind)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{kind}_predecessors, {what}"
+                        f"{' (checked build)' if checked else ''}: "
+                        f"{int((got != want).sum())} of {g.n_vertices} "
+                        "predecessors differ from the plain pass's")
+        finally:
+            _build.use_checked(False)
+    print(f"predecessors: {len(cases)} cases bit for bit in both builds, "
+          f"DO searches from {sources}")
+
+    rows = {}
+    for kind, replaces in (("bfs", "gunrock_tpu/algorithms/bfs.py:458"),
+                           ("sssp", "gunrock_tpu/algorithms/sssp.py:403")):
+        name, d, fn = f"{kind}_predecessors", dists[kind][1], kernel[kind]
+        launched = kernels_of_one_call(lambda: fn(graph, d))
+        if list(launched.values()) != [1]:
+            raise AssertionError(f"{name}: one call ran {launched}, not "
+                                 "one device kernel")
+        b, by = bound_ms(predecessor_cases.bound_bytes(graph, d, kind)[0])
+        rows[name] = dict(
+            route="cuda", source="gunrock_tpu_torch/csrc/predecessors.cu",
+            replaces=replaces, max_abs_err=0.0,
+            ms=time_ms(torch, timed.setdefault(
+                name, lambda fn=fn, d=d: fn(graph, d))),
+            plain_ms=time_ms(torch, lambda d=d, kind=kind:
+                             P.predecessors_plain(graph, d, kind)),
+            bound_ms=b, bound_by=by, library_ms=None)
     return rows
 
 
@@ -4289,10 +4361,10 @@ def main() -> int:
 
     # 3. the main paths, launches counted from zero before each
     bfs_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",
-                   "bucketed_spmm", "bfs_push_step")
+                   "bucketed_spmm", "bfs_push_step", "bfs_predecessors")
     family_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",
                       "sssp_push_step", "bucketed_semiring_spmv",
-                      "hits_fused_pass", "bucketed_spmm")
+                      "hits_fused_pass", "bucketed_spmm", "sssp_predecessors")
     t0 = time.perf_counter()
     _build.reset_launches()
     bench, per_bfs = main_path(torch, graph, lay)

@@ -20,7 +20,8 @@ Spans (``utils/profiler.py``): ``bfs.run`` a call of :func:`run`, with
 ``bfs.level`` a level of :func:`bfs_kernel_do` (its index, direction and
 the frontier's size and out-edges) and ``bfs.sync`` for each level read;
 ``msbfs`` a call of :func:`msbfs_kernel`, with ``msbfs.level`` and
-``msbfs.sync``; ``kernel.bfs_push_step`` around the push step.
+``msbfs.sync``; ``kernel.bfs_push_step`` around the push step and
+``kernel.bfs_predecessors`` inside ``bfs.predecessors``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from gunrock_tpu_torch.ops.configs import (
 )
 from gunrock_tpu_torch.ops.kernels import _build
 from gunrock_tpu_torch.ops.kernels.layout import build_auto_layout, pull_layout
+from gunrock_tpu_torch.ops.kernels.predecessors import bfs_predecessors
 from gunrock_tpu_torch.ops.kernels.semiring import bucketed_semiring_spmv_sparse
 from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
 from gunrock_tpu_torch.utils.limits import UNREACHED
@@ -320,8 +322,12 @@ def run(
     """Role of reference ``bfs::run``: BFS from ``single_source`` on
     ``device`` (the graph moves there if it is elsewhere). The default
     options take the direction-optimizing path over the bucketed kernels;
-    predecessors then come from one post-pass. Other options run
-    ``BfsEnactor``, which keeps predecessors as it goes."""
+    predecessors then come from one post-pass,
+    :func:`_predecessors_from_distances`: each vertex's smallest
+    in-neighbour one level closer, found on the card by one launch of
+    ``csrc/predecessors.cu`` that stops at the first such in-neighbour of
+    each ascending CSC run. Other options run ``BfsEnactor``, which keeps
+    predecessors as it goes."""
     with annotate("bfs.run", sources=1):
         graph = graph.to(device)
         if not 0 <= int(single_source) < graph.n_vertices:
@@ -352,13 +358,11 @@ def run(
 
 
 def _predecessors_from_distances(graph: Graph, distances):
-    """pred[v] = min in-neighbour u with dist[u] == dist[v] - 1."""
+    """pred[v] = the smallest in-neighbour u with dist[u] == dist[v] - 1;
+    -1 for the source and unreached vertices. On the card one launch of
+    ``csrc/predecessors.cu`` (:func:`bfs_predecessors`) scans each
+    vertex's CSC run in ascending order and stops at its first such u, the
+    smallest, since sources ascend within a run; on the CPU the plain
+    segment min."""
     with annotate("bfs.predecessors"):
-        src = graph.csc_rows
-        d_src = distances[src]
-        ok = (d_src != UNREACHED) & (d_src + 1 == distances[graph.csc_dst])
-        pred = torch.full_like(distances, UNREACHED).scatter_reduce_(
-            0, graph.csc_dst.long(), torch.where(ok, src, UNREACHED), "amin")
-        return torch.where(
-            (pred == UNREACHED) | (distances == UNREACHED), -1, pred
-        ).to(torch.int32)
+        return bfs_predecessors(graph, distances)

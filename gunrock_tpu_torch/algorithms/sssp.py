@@ -22,7 +22,8 @@ Spans (``utils/profiler.py``): ``sssp.run`` a call of :func:`run`, with
 one ``sssp.level`` a round of :func:`sssp_kernel_do` and
 :func:`sssp_kernel_delta` (its index, direction and the frontier's size
 and out-edges) and ``sssp.sync`` for each round's read;
-``kernel.sssp_push_step`` around the push step.
+``kernel.sssp_push_step`` around the push step and
+``kernel.sssp_predecessors`` inside ``sssp.predecessors``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from gunrock_tpu_torch.ops.configs import (
 )
 from gunrock_tpu_torch.ops.kernels import _build
 from gunrock_tpu_torch.ops.kernels.layout import pull_layout
+from gunrock_tpu_torch.ops.kernels.predecessors import sssp_predecessors
 from gunrock_tpu_torch.ops.kernels.semiring import (
     _BIG,
     bucketed_semiring_spmv,
@@ -52,7 +54,6 @@ from gunrock_tpu_torch.utils.profiler import annotate, host_read
 from gunrock_tpu_torch.utils.timer import timed
 
 INF = float("inf")
-_INT_MAX = torch.iinfo(torch.int32).max
 # the push step's grid: at most this many blocks an SM (and the co-resident
 # ones, and one vertex a thread)
 _BLOCKS_PER_SM = 4
@@ -330,21 +331,16 @@ def sssp_kernel_pallas(graph: Graph, single_source: int, layout=None,
 
 
 def recover_predecessors(graph: Graph, distances):
-    """One pass over edges: pred[v] = min src with dist[src] + w close to
-    dist[v] (``torch.isclose`` at jnp's defaults, rtol 1e-5, atol 1e-8);
-    -1 where none (unreached vertices and the source)."""
+    """One pass over the in-edges: pred[v] = the smallest src with
+    dist[src] + w close to dist[v] (``torch.isclose`` at jnp's defaults,
+    rtol 1e-5, atol 1e-8) and dist[src] finite; -1 where none (unreached
+    vertices and the source). On the card one launch of
+    ``csrc/predecessors.cu`` (:func:`sssp_predecessors`) scans each
+    vertex's CSC run in ascending order and stops at its first such src,
+    the smallest, since sources ascend within a run; on the CPU the plain
+    segment min."""
     with annotate("sssp.predecessors"):
-        src = graph.csc_rows
-        d_src = distances[src.long()]
-        tight = torch.isclose(d_src + graph.csc_values,
-                              distances[graph.csc_dst.long()],
-                              rtol=1e-5, atol=1e-8) & (d_src < INF)
-        pred = torch.full(distances.shape, _INT_MAX, dtype=torch.int32,
-                          device=distances.device).scatter_reduce_(
-            0, graph.csc_dst.long(), torch.where(tight, src, _INT_MAX),
-            "amin")
-        return torch.where((pred == _INT_MAX) | torch.isinf(distances), -1,
-                           pred).to(torch.int32)
+        return sssp_predecessors(graph, distances)
 
 
 class SsspProblem(Problem):
@@ -386,7 +382,11 @@ def run(
     delta-stepping; OPTIMIZED runs direction-optimizing SSSP (over the
     ``pad_value=_BIG`` pull layout with PALLAS_MERGE_PATH, the default);
     PALLAS_MERGE_PATH alone runs the dense min_plus pass per wave; anything
-    else runs the enactor."""
+    else runs the enactor. Every strategy ends in
+    :func:`recover_predecessors`: each vertex's smallest tight
+    in-neighbour, found on the card by one launch of
+    ``csrc/predecessors.cu`` that stops at the first tight in-neighbour of
+    each ascending CSC run."""
     with annotate("sssp.run", sources=1):
         graph = graph.to(device)
         if not 0 <= int(single_source) < graph.n_vertices:

@@ -167,6 +167,20 @@ with ``banded_cases.py`` into an earlier tree's
 ``gunrock_tpu_torch/probes/`` (a ``git archive`` of the parent in
 ``_chip/parent/``), it times that tree's kernel on the same inputs.
 
+``--predecessors`` prints instead (no other case) one line for each kind
+of the predecessor pass, ``pred_bfs`` and ``pred_sssp``, on an undirected
+R-MAT graph of ``--scale`` (edge factor 16, seed 1, degree-sorted: the
+benchmark's Kronecker shape) with the distances of eight searches from
+seeded random sources of nonzero degree (the DO searches over their pull
+layouts). Each has, a pass, ``ms`` (CUDA events) and ``device_ms`` of the
+kernel (``bfs_predecessors``, ``sssp_predecessors``), ``plain_ms`` and
+``plain_device_ms`` of ``predecessors_plain`` on the same inputs,
+``bound_ms`` (what the early exit needs: the offsets, the distances and
+pred over V, and each reached vertex's slots up to its first tight one, 4
+B a slot, 8 B for SSSP's weights) and ``full_bound_ms`` (every slot), and
+``equal`` (the kernel's pred bit for bit the plain version's on every
+source).
+
 ``--sweep 4,8,16,32`` adds one line per P: b3_valued, b3_pr, b1_full, b8_hits
 and b5_color with both span tables cut at P
 (``BucketedEdges.with_span_chunks``); ``--k_tiles 4,8,16`` one line per K
@@ -178,7 +192,7 @@ earlier tree's kernels.
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
        [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--b4_b6]
        [--luby] [--b2_b9] [--geo] [--sssp_push] [--bfs_push] [--mst]
-       [--async] [--banded] [--device cuda]
+       [--async] [--banded] [--predecessors] [--device cuda]
 """
 
 from __future__ import annotations
@@ -1023,6 +1037,66 @@ def build_layouts(graph) -> dict:
             "geo": push_layout(graph, unit=True)}
 
 
+def predecessor_lines(scale: int, n: int, device) -> list:
+    """The ``pred_bfs`` and ``pred_sssp`` lines (see the module
+    docstring)."""
+    from gunrock_tpu_torch.algorithms import bfs, sssp
+    from gunrock_tpu_torch.graph.reorder import degree_sort
+    from gunrock_tpu_torch.io.generators import rmat_graph
+    from gunrock_tpu_torch.ops.kernels import predecessors as P
+    from gunrock_tpu_torch.ops.kernels.layout import pull_layout
+    from gunrock_tpu_torch.ops.kernels.semiring import _BIG
+    from gunrock_tpu_torch.probes.predecessor_cases import bound_bytes
+    from gunrock_tpu_torch.utils.roofline import bound_ms
+
+    graph, _ = degree_sort(rmat_graph(scale, 16, seed=1, undirected=True,
+                                      device=device))
+    dev = graph.device
+    live = torch.nonzero(graph.out_degrees().cpu() > 0).flatten()
+    gen = torch.Generator().manual_seed(1)
+    sources = live[torch.randperm(live.numel(), generator=gen)[:8]].tolist()
+    rows = []
+    for kind in ("bfs", "sssp"):
+        if kind == "bfs":
+            lay = pull_layout(graph, unit=True)
+            dists = [bfs.bfs_kernel_do(graph, s, layout=lay)[0]
+                     for s in sources]
+            kernel = P.bfs_predecessors
+        else:
+            lay = pull_layout(graph, pad_value=_BIG)
+            dists = [sssp.sssp_kernel_do(graph, s, layout=lay)[0]
+                     for s in sources]
+            kernel = P.sssp_predecessors
+
+        def run():
+            return [kernel(graph, d) for d in dists]
+
+        def plain():
+            return [P.predecessors_plain(graph, d, kind) for d in dists]
+
+        equal = all(torch.equal(a, b) for a, b in zip(run(), plain()))
+        k = len(dists)
+        row = {"probe": "pull", "case": f"pred_{kind}", "scale": scale,
+               "vertices": graph.n_vertices, "slots": graph.n_edges,
+               "sources": sources, "equal": equal,
+               "ms": time_ms(dev, run, n) / k}
+        busy, kernels = _profile(run, n, dev)
+        row["device_ms"] = busy / k if isinstance(busy, float) else busy
+        row["kernels"] = kernels
+        row["plain_ms"] = time_ms(dev, plain, n) / k
+        busy = _profile(plain, n, dev)[0]
+        row["plain_device_ms"] = busy / k if isinstance(busy, float) else busy
+        if dev.type == "cuda":
+            need, full = zip(*(bound_bytes(graph, d, kind) for d in dists))
+            row["bound_ms"] = sum(bound_ms(b, 0, device=dev)[0]
+                                  for b in need) / k
+            row["full_bound_ms"] = sum(bound_ms(b, 0, device=dev)[0]
+                                       for b in full) / k
+        row["device"] = device_label(dev)
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     from gunrock_tpu_torch.probes.v5_floor import probe_graph
 
@@ -1060,8 +1134,15 @@ def main(argv=None) -> int:
     p.add_argument("--banded", action="store_true",
                    help="time only the banded gather on the triangle "
                         "count's real slab and on synthetic slabs")
+    p.add_argument("--predecessors", action="store_true",
+                   help="time only the predecessor pass of BFS and SSSP "
+                        "against its plain version")
     p.add_argument("--device", default="cuda")
     ns = p.parse_args(argv)
+    if ns.predecessors:
+        for row in predecessor_lines(ns.scale, ns.num_runs, ns.device):
+            print(json.dumps(row), flush=True)
+        return 0
     graph = probe_graph(ns.scale, ns.device)
     for flag, lines in ((ns.async_, async_lines), (ns.banded, banded_lines)):
         if flag:

@@ -98,9 +98,10 @@ def device_profile(fn) -> dict:
     kernels, copies, fills; one stream, so no overlap) and its idle share,
     and the kernels that took the most device time. Host-side ops
     (``aten::*``) carry their kernels' device time as well and are left
-    out, so nothing is counted twice. The profiler adds host time, so the
-    idle share is an upper bound."""
-    from torch.autograd import DeviceType
+    out, and so are the device-side copies of the port's spans (user
+    annotations, ``kernel.*`` around a launch), so nothing is counted
+    twice. The profiler adds host time, so the idle share is an upper
+    bound."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -111,15 +112,29 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0.0)
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in events)
+    events = device_events(prof.key_averages())
+    busy_us = sum(_dev_us(e) for e in events)
     if busy_us == 0:
         return {"wall_us": wall_us, "device": "not measured"}
-    top = sorted(events, key=dev_us, reverse=True)[:6]
+    top = sorted(events, key=_dev_us, reverse=True)[:6]
     return {"wall_us": wall_us, "busy_us": busy_us,
             "idle_share": 1 - busy_us / wall_us,
-            "top_us": {e.key[:60]: [dev_us(e), e.count] for e in top}}
+            "top_us": {e.key[:60]: [_dev_us(e), e.count] for e in top}}
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", 0.0)
+
+
+def device_events(averages) -> list:
+    """The entries of a profile's ``key_averages()`` that :func:`device_profile`
+    counts as the card's busy time: device-side, with device time, and no
+    user annotation (the device-side copy of a span covers the kernels
+    already counted inside it). ``is_user_annotation`` is read, not
+    defaulted, so a torch without it fails here instead of counting a
+    wrapped kernel twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages
+            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+            and not e.is_user_annotation]

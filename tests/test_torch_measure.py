@@ -141,6 +141,41 @@ def test_trace_and_device_op_stats_on_a_cpu_bfs(graphs, tmp_path):
     assert trace_stats.device_op_stats(str(tmp_path / "none")) == []
 
 
+def test_device_busy_counts_an_annotated_kernel_once():
+    """A kernel inside a ``kernel.*`` span shows twice in a card's
+    ``key_averages()``: as itself and in the span's device-side copy (a
+    user annotation). Busy time counts it once, and host ops not at
+    all."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def avg(key, device_type, us, annotation):
+        return SimpleNamespace(key=key, device_type=device_type, count=1,
+                               self_device_time_total=us,
+                               is_user_annotation=annotation)
+
+    kernel = avg("gr_bfs_predecessors_kernel", DeviceType.CUDA, 85.0, False)
+    averages = [avg("kernel.bfs_predecessors", DeviceType.CUDA, 85.0, True),
+                kernel,
+                avg("aten::empty", DeviceType.CPU, 85.0, False),
+                avg("kernel.bfs_predecessors", DeviceType.CPU, 0.0, True)]
+    assert trace_stats.device_events(averages) == [kernel]
+
+
+def test_profiler_marks_spans_as_user_annotations():
+    """The attribute ``device_events`` reads is torch's own: a port span
+    under torch.profiler is a user annotation, an op is not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiler.annotate("kernel.under_test"):
+            torch.ones(4).add_(1)
+    marks = {e.key: e.is_user_annotation for e in prof.key_averages()}
+    assert marks["kernel.under_test"] is True
+    assert marks["aten::add_"] is False
+
+
 def _export(main, tmp_path, argv, name):
     assert main(["--market", CHESAPEAKE, "--export_metrics", "-d",
                  str(tmp_path), "-f", name, "-t", "smoke,cpu", *argv]) in (0, None)
