@@ -72,7 +72,10 @@ Phases, each raising on failure:
    after; every kernel of the path must have launched:
    a. BFS: ``bfs.run`` (direction-optimizing BFS) from the 8
       highest-degree vertices, each checked against the CPU oracle, then
-      multi-source BFS over the 32 highest-degree vertices;
+      multi-source BFS over the 32 highest-degree vertices; then DO-BFS
+      and DO-SSSP with their levels replayed from captured CUDA graphs,
+      bit for bit against the same searches run eagerly (the checked
+      build), with the levels captured and replayed;
    b. the semiring family: ``sssp.run`` from the 8 highest-degree
       vertices and once with the dense min_plus pass, ``pr.run``,
       ``pr.run_batch`` over four dampings, ``hits.run`` and ``spmv.run``,
@@ -164,7 +167,8 @@ Phases, each raising on failure:
    ``datasets/expected.json``.
 
 Output: the ``nvidia-smi`` name/power-limit line first, a bench line with
-bench.py's keys, a ``{"semiring_family": ...}`` line, a
+bench.py's keys, a ``{"level_graphs": ...}`` line, a
+``{"semiring_family": ...}`` line, a
 ``{"frontier_family": ...}`` line, an ``{"analysis_family": ...}`` line
 (each with roofline columns from ``utils/roofline``), the probes' lines
 and a ``{"measurement": ...}`` line, an ``{"operators": ...}`` line, an
@@ -2342,6 +2346,72 @@ def main_path(torch, graph, layout):
     return bench, per_bfs
 
 
+def level_graph_check(torch, graph, layouts) -> dict:
+    """Phase 3a, second part: DO-BFS and DO-SSSP (``bfs_kernel_do``,
+    ``sssp_kernel_do``) on the layouts of ``bfs.run`` and ``sssp.run``,
+    their levels replayed from captured CUDA graphs
+    (``framework/level_graphs.py``), against the same searches run
+    eagerly by the checked build, bit for bit: distances and depth from
+    the top-degree vertex and four seeded sources of nonzero degree. Two
+    warm passes over the sources capture every direction they take; the
+    third must only replay. Returns, per search, the levels, the captures
+    and replays of the warm passes and of the third, and the third's ms a
+    search by CUDA events."""
+    import collections
+
+    import numpy as np
+
+    from gunrock_tpu_torch.algorithms import bfs, sssp
+    from gunrock_tpu_torch.ops.kernels import _build
+
+    deg = np.diff(graph.host["row_offsets"])
+    rng = np.random.default_rng(SEED + 7)
+    sources = [int(np.argmax(deg))] + rng.choice(
+        np.flatnonzero(deg > 0), 4, replace=False).tolist()
+    searches = {
+        "bfs": lambda s: bfs.bfs_kernel_do(graph, s, layout=layouts["unit"]),
+        "sssp": lambda s: sssp.sssp_kernel_do(graph, s,
+                                              layout=layouts["big"])}
+    out = {}
+    for kind, search in searches.items():
+        _build.use_checked(True)
+        try:
+            eager = [search(s) for s in sources]
+        finally:
+            _build.use_checked(False)
+        before = collections.Counter(_build.LAUNCHES)
+        for _ in range(2):
+            for s in sources:
+                search(s)
+        warm = collections.Counter(_build.LAUNCHES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replayed = [search(s) for s in sources]
+        stop.record()
+        torch.cuda.synchronize()
+        hot = collections.Counter(_build.LAUNCHES) - warm
+        for s, (d0, k0), (d1, k1) in zip(sources, eager, replayed):
+            if k0 != k1 or not torch.equal(d0, d1):
+                raise AssertionError(
+                    f"level graphs, {kind} from {s}: depth {k1} against "
+                    f"{k0}, {int((d0 != d1).sum())} distances differ from "
+                    "the eager search's")
+        levels = sum(k for _, k in replayed)
+        if hot["level_graph_capture"] or hot["level_graph_replay"] != levels:
+            raise AssertionError(f"level graphs, {kind}: the third pass "
+                                 f"captured {hot['level_graph_capture']} and "
+                                 f"replayed {hot['level_graph_replay']} of "
+                                 f"{levels} levels")
+        warmed = warm - before
+        out[kind] = {"sources": sources, "levels": levels,
+                     "warm_captures": warmed["level_graph_capture"],
+                     "warm_replays": warmed["level_graph_replay"],
+                     "replays": hot["level_graph_replay"],
+                     "ms_per_search": start.elapsed_time(stop) / len(sources)}
+    return out
+
+
 def close(what, got, want, rtol, atol):
     """Raise unless got and want (numpy) agree: the same infinities, finite
     entries within atol + rtol * |want|. Returns the largest difference."""
@@ -4381,6 +4451,11 @@ def main() -> int:
     bench["launches_per_bfs"] = per_bfs
     print(json.dumps(bench))
     seconds["bfs_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    print(json.dumps({"level_graphs": level_graph_check(torch, graph,
+                                                        layouts)}))
+    seconds["level_graphs"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     _build.reset_launches()

@@ -13,12 +13,14 @@ JAX package does; :func:`bfs_kernel` is the same search as a bare loop.
 The JAX package runs each search as one compiled ``while_loop``; here the
 loop is Python, and each level reads one two-element tensor back to the
 host (the frontier's out-edge sum and size), which both picks push or
-pull and ends the loop.
+pull and ends the loop. On the card a level of :func:`bfs_kernel_do` is
+one replayed CUDA graph (``framework/level_graphs.py``).
 
 Spans (``utils/profiler.py``): ``bfs.run`` a call of :func:`run`, with
 ``bfs.search`` (the timed search) and ``bfs.predecessors`` inside it; one
-``bfs.level`` a level of :func:`bfs_kernel_do` (its index, direction and
-the frontier's size and out-edges) and ``bfs.sync`` for each level read;
+``bfs.level`` a level of :func:`bfs_kernel_do` (its index, direction, the
+frontier's size and out-edges, and ``graph``: ``eager``, ``capture`` or
+``replay``) and ``bfs.sync`` for each level read;
 ``msbfs`` a call of :func:`msbfs_kernel`, with ``msbfs.level`` and
 ``msbfs.sync``; ``kernel.bfs_push_step`` around the push step and
 ``kernel.bfs_predecessors`` inside ``bfs.predecessors``.
@@ -34,6 +36,7 @@ import torch
 
 from gunrock_tpu_torch.device import DEFAULT
 from gunrock_tpu_torch.framework.enactor import Enactor
+from gunrock_tpu_torch.framework.level_graphs import Levels, level_graphs
 from gunrock_tpu_torch.framework.problem import Problem
 from gunrock_tpu_torch.graph import Graph
 from gunrock_tpu_torch.ops.configs import (
@@ -54,7 +57,7 @@ from gunrock_tpu_torch.utils.timer import timed
 _BLOCKS_PER_SM = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gr_bfs_push_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P],
+    "gr_bfs_push_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
 
 
@@ -96,7 +99,9 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
                   edge_budget: int):
     """Sparse push expansion: every unreached out-neighbour of the frontier
     gets ``iteration + 1``. Returns (new_mask, distances); ``distances`` is
-    updated IN PLACE (the search loop owns it). ``edge_budget`` is the
+    updated IN PLACE (the search loop owns it). ``iteration`` is an int or
+    a 0-d int32 tensor on the graph's device, which the kernel then reads
+    there (a level graph's counter). ``edge_budget`` is the
     reference's fixed expansion size; the kernel expands exactly the
     frontier's out-edges, so it only keeps the signature.
 
@@ -112,6 +117,10 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
             return bfs_push_step_plain(graph, front_mask, distances, iteration)
         if dev.type != "cuda":
             raise ValueError(f"no push kernel for device {dev}")
+        level_at = None
+        if isinstance(iteration, torch.Tensor):
+            _build.check_tensor(iteration, "iteration", torch.int32, (), dev)
+            level_at, iteration = iteration, 0
         max_blocks = _BLOCKS_PER_SM * _build.sm_count(dev)
         # fresh, so that it never aliases front_mask, which the kernel
         # reads while it clears new_mask
@@ -124,8 +133,8 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
             _build.ptr(front_mask), V, graph.n_edges,
             _build.ptr(graph.row_offsets),
             _build.ptr(graph.col_indices), _build.ptr(distances),
-            _build.ptr(new_mask), int(iteration) + 1, _build.ptr(scratch),
-            max_blocks, _build.stream(dev),
+            _build.ptr(new_mask), int(iteration), _build.ptr(level_at),
+            _build.ptr(scratch), max_blocks, _build.stream(dev),
         )
         _build.check(err, "bfs_push_step")
         _build.LAUNCHES["bfs_push_step"] += 1
@@ -134,7 +143,7 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
 
 def bfs_push_step_plain(graph: Graph, front_mask, distances, iteration):
     """Plain PyTorch version of :func:`bfs_push_step` (same in-place
-    update of ``distances``)."""
+    update of ``distances``; ``iteration`` an int or a 0-d tensor)."""
     q = torch.nonzero(front_mask).flatten()
     starts = graph.row_offsets[q].long()
     degs = graph.row_offsets[q + 1].long() - starts
@@ -152,14 +161,17 @@ def bfs_push_step_plain(graph: Graph, front_mask, distances, iteration):
 def _pull(layout, front, dist, it):
     """Frontier-sparse plus_times pull: with a 0/1 frontier, a vertex is
     reached iff its count is > 0. Chunks with no frontier source or no
-    unreached destination are skipped."""
+    unreached destination are skipped. ``it`` is an int or a 0-d int32
+    tensor on the card (a level graph's counter, which ``where`` reads on
+    the card: ``masked_fill_`` would read it to the host)."""
     unreached = dist == UNREACHED
     y = bucketed_semiring_spmv_sparse(
         layout, front.to(torch.float32), front, "plus_times",
         out_mask=unreached, exact=True, unit=True,
     )
     new = (y > 0.5) & unreached
-    return new, dist.masked_fill_(new, it + 1)
+    level = torch.as_tensor(it + 1, dtype=torch.int32)
+    return new, torch.where(new, level, dist, out=dist)
 
 
 def bfs_kernel_do(
@@ -174,8 +186,10 @@ def bfs_kernel_do(
     frontier's out-edges and size are under ``edge_budget``, else the pull
     (the frontier-sparse kernel over ``layout``, a unit pull layout, or
     the plain cumsum pull without one). ``layout_dense``, when given, takes
-    the levels whose frontier covers half the edges. Returns
-    (distances int32[V], depth)."""
+    the levels whose frontier covers half the edges. On the card with a
+    ``layout``, each level after a direction's first is a replayed CUDA
+    graph (``framework/level_graphs.py``). Returns (distances int32[V],
+    depth)."""
     V, E = graph.n_vertices, graph.n_edges
     dev = graph.device
     max_it = V if max_iterations is None else max_iterations
@@ -186,37 +200,38 @@ def bfs_kernel_do(
         # measured tuning, kept until the card's own is measured)
         div = 512 if graph.properties.hub_ordered else 64
         edge_budget = max(4096, E // div)
-    deg = graph.out_degrees()
     dist = torch.full((V,), UNREACHED, dtype=torch.int32, device=dev)
     dist[single_source] = 0
     front = torch.zeros(V, dtype=torch.bool, device=dev)
     front[single_source] = True
+    entry = level_graphs("bfs", graph, layout, layout_dense, torch.int32)
+    levels = Levels("bfs", graph, entry, front, dist, 0)
+    del front, dist  # the levels own the state
+    steps = {
+        "push": lambda f, d, i: bfs_push_step(graph, f, d, i, edge_budget),
+        "pull": lambda f, d, i: _pull(layout, f, d, i),
+        "pull_dense": lambda f, d, i: _pull(layout_dense, f, d, i),
+        "step": lambda f, d, i: bfs_step(graph, f, d, None, i)[:2],
+    }
     it = 0
     while it < max_it:
         # the level's one host read: out-edge sum and size of the frontier
-        out_edges, n_front = host_read("bfs", lambda: torch.stack(
-            [torch.where(front, deg, 0).sum(), front.sum()]))
+        out_edges, n_front = levels.read()
         if n_front == 0:
             break
         if out_edges < edge_budget and n_front < edge_budget:
-            direction, lay = "push", None
+            direction = "push"
         elif layout_dense is not None and out_edges >= E // 2:
-            direction, lay = "pull_dense", layout_dense
+            direction = "pull_dense"
         elif layout is not None:
-            direction, lay = "pull", layout
+            direction = "pull"
         else:
-            direction, lay = "step", None
+            direction = "step"
         with annotate("bfs.level", level=it, direction=direction,
-                      n_front=n_front, out_edges=out_edges):
-            if direction == "push":
-                front, dist = bfs_push_step(graph, front, dist, it,
-                                            edge_budget)
-            elif lay is None:
-                front, dist, _ = bfs_step(graph, front, dist, None, it)
-            else:
-                front, dist = _pull(lay, front, dist, it)
+                      n_front=n_front, out_edges=out_edges) as span:
+            span.set(graph=levels.step(direction, it, steps[direction]))
         it += 1
-    return dist, it
+    return levels.distances(), it
 
 
 def msbfs_kernel(graph: Graph, sources, pull_layout=None,

@@ -14,14 +14,17 @@ enactor run the plain-tensor relaxation :func:`sssp_step`.
 
 The JAX package runs each search as one compiled ``while_loop``; here the
 loop is Python and each iteration reads one small tensor back to the host,
-which both picks push or pull and ends the loop. Predecessors come from
-one post-pass, :func:`recover_predecessors`.
+which both picks push or pull and ends the loop; on the card an iteration
+of :func:`sssp_kernel_do` is one replayed CUDA graph
+(``framework/level_graphs.py``). Predecessors come from one post-pass,
+:func:`recover_predecessors`.
 
 Spans (``utils/profiler.py``): ``sssp.run`` a call of :func:`run`, with
 ``sssp.search`` (the timed search) and ``sssp.predecessors`` inside it;
 one ``sssp.level`` a round of :func:`sssp_kernel_do` and
-:func:`sssp_kernel_delta` (its index, direction and the frontier's size
-and out-edges) and ``sssp.sync`` for each round's read;
+:func:`sssp_kernel_delta` (its index, direction, the frontier's size and
+out-edges, and in :func:`sssp_kernel_do` ``graph``: ``eager``,
+``capture`` or ``replay``) and ``sssp.sync`` for each round's read;
 ``kernel.sssp_push_step`` around the push step and
 ``kernel.sssp_predecessors`` inside ``sssp.predecessors``.
 """
@@ -35,6 +38,7 @@ import torch
 
 from gunrock_tpu_torch.device import DEFAULT
 from gunrock_tpu_torch.framework import Enactor, Problem
+from gunrock_tpu_torch.framework.level_graphs import Levels, level_graphs
 from gunrock_tpu_torch.graph import Graph
 from gunrock_tpu_torch.ops.configs import (
     AdvanceDirection,
@@ -187,7 +191,9 @@ def sssp_kernel_do(
     (the frontier-sparse min_plus kernel over ``layout``, a
     ``pad_value=_BIG`` pull layout, or :func:`sssp_step` without one).
     ``layout_dense``, when given with ``layout``, takes the iterations
-    whose frontier covers half the edges. Returns (distances, depth).
+    whose frontier covers half the edges. On the card with a ``layout``,
+    each iteration after a direction's first is a replayed CUDA graph
+    (``framework/level_graphs.py``). Returns (distances, depth).
 
     Resumable, for :func:`sssp_do_slabbed`: ``init_state`` (iteration,
     frontier, distances) continues an earlier call, ``stop`` ends the loop
@@ -202,17 +208,24 @@ def sssp_kernel_do(
         # card's own is measured)
         div = 192 if graph.properties.hub_ordered else 128
         edge_budget = max(4096, E // div)
-    deg = graph.out_degrees()
     if init_state is None:
         dist, front = _start(graph, single_source)
         it = 0
     else:
         it, front, dist = init_state
+    entry = level_graphs("sssp", graph, layout, layout_dense, torch.float32)
+    levels = Levels("sssp", graph, entry, front, dist, it)
+    del front, dist  # the levels own the state
+    steps = {
+        "push": lambda f, d, _: sssp_push_step(graph, f, d, edge_budget),
+        "step": lambda f, d, _: sssp_step(graph, f, d),
+        "pull": lambda f, d, _: _pull(layout, f, d),
+        "pull_dense": lambda f, d, _: _pull(layout_dense, f, d),
+    }
     limit = max_it if stop is None else stop
     while it < limit:
         # the iteration's one host read: out-edge sum and size of the frontier
-        out_edges, n_front = host_read("sssp", lambda: torch.stack(
-            [torch.where(front, deg, 0).sum(), front.sum()]))
+        out_edges, n_front = levels.read()
         if n_front == 0:
             break
         if out_edges < edge_budget and n_front < edge_budget:
@@ -224,18 +237,12 @@ def sssp_kernel_do(
         else:
             direction = "pull"
         with annotate("sssp.level", level=it, direction=direction,
-                      n_front=n_front, out_edges=out_edges):
-            if direction == "push":
-                front, dist = sssp_push_step(graph, front, dist, edge_budget)
-            elif direction == "step":
-                front, dist = sssp_step(graph, front, dist)
-            else:
-                front, dist = _pull(layout_dense if direction == "pull_dense"
-                                    else layout, front, dist)
+                      n_front=n_front, out_edges=out_edges) as span:
+            span.set(graph=levels.step(direction, it, steps[direction]))
         it += 1
     if return_state:
-        return it, front, dist
-    return dist, it
+        return it, levels.frontier(), levels.distances()
+    return levels.distances(), it
 
 
 def sssp_do_slabbed(

@@ -6,10 +6,11 @@
 // the new level.
 //
 // Contract: every vertex u with an in-edge from a frontier vertex and
-// dist[u] == UNREACHED gets dist[u] = level and new_mask[u] = 1; nothing
-// else changes. This is the set and the distances of bfs.py:107-110. The
-// result does not depend on the order of the edges: atomicCAS claims each
-// new vertex once, and every claim writes the same level.
+// dist[u] == UNREACHED gets dist[u] = level + 1 and new_mask[u] = 1;
+// nothing else changes. This is the set and the distances of
+// bfs.py:107-110. The result does not depend on the order of the edges:
+// atomicCAS claims each new vertex once, and every claim writes the same
+// level.
 //
 // What bounds it on this card: launch latency and the grid's two
 // barriers on the levels where the DO switch picks it (frontier out-edges
@@ -42,17 +43,19 @@ struct Args {
   const int* col_indices;   // int32[n_edges]
   int* dist;                // int32[n_vertices], updated in place
   unsigned char* new_mask;  // bool[n_vertices], written whole
-  int level;
+  int level;                // the frontier's level, unless level_at is set
+  const int* level_at;      // int32[1] on the device: the level, or null
 };
 
 __global__ void __launch_bounds__(gr::kThreads) push_step(const Args a) {
+  const int next = (a.level_at ? *a.level_at : a.level) + 1;
   gr::expand_frontier(
       a.x, [&](int v) { a.new_mask[v] = 0; },
       [&](int, int e) {
         const int u = a.col_indices[e];
         if (!GR_IN_RANGE(u, a.x.n_vertices)) return;
         if (a.dist[u] == kUnreached &&
-            atomicCAS(&a.dist[u], kUnreached, a.level) == kUnreached)
+            atomicCAS(&a.dist[u], kUnreached, next) == kUnreached)
           a.new_mask[u] = 1;
       });
 }
@@ -60,14 +63,18 @@ __global__ void __launch_bounds__(gr::kThreads) push_step(const Args a) {
 }  // namespace
 
 // new_mask: bool[V], written whole; it must not alias front. dist is
-// updated in place. scratch: int32[2 * max_blocks + 2 * n_vertices], laid
-// out as [block counts | queue | first]; nothing in it needs to be set.
-// The grid is at most max_blocks blocks. Returns cudaErrorNotSupported
-// where the device has no cooperative launch.
+// updated in place. The frontier's level is level, or, where level_at is
+// not null, the int32 it points to on the device, which the kernel reads
+// there, so that a captured CUDA graph replays at any level. scratch:
+// int32[2 * max_blocks + 2 * n_vertices], laid out as [block counts |
+// queue | first]; nothing in it needs to be set. The grid is at most
+// max_blocks blocks. Returns cudaErrorNotSupported where the device has
+// no cooperative launch.
 extern "C" int gr_bfs_push_step(const void* front, int n_vertices,
                                 int n_edges, const void* row_offsets,
                                 const void* col_indices, void* dist,
-                                void* new_mask, int level, void* scratch,
+                                void* new_mask, int level,
+                                const void* level_at, void* scratch,
                                 int max_blocks, void* stream) {
   static int coresident = -1;  // one card per process
   if (coresident < 0) coresident = gr::coresident_blocks(push_step, gr::kThreads);
@@ -86,6 +93,7 @@ extern "C" int gr_bfs_push_step(const void* front, int n_vertices,
   a.dist = static_cast<int*>(dist);
   a.new_mask = static_cast<unsigned char*>(new_mask);
   a.level = level;
+  a.level_at = static_cast<const int*>(level_at);
   // at least one vertex a thread in the first phase
   const long want = (static_cast<long>(n_vertices) + gr::kThreads - 1) / gr::kThreads;
   int blocks = static_cast<int>(want < 1 ? 1 : want);

@@ -58,6 +58,11 @@ def use_checked(on: bool) -> None:
     _checked = bool(on)
 
 
+def checked() -> bool:
+    """Whether ``load`` hands out the checked libraries."""
+    return _checked
+
+
 def reset_launches() -> None:
     LAUNCHES.clear()
 

@@ -2,8 +2,9 @@
 no ``record_function`` call and records nothing; a recording nests spans,
 gives one query id to each outermost span and counts what its bound drops;
 the search loops' level, sync, kernel and predecessor spans agree with
-what the searches return; a span recorded under ``torch.profiler`` agrees
-with its twin in the exported trace."""
+what the searches return, and off the card every level runs eagerly; a
+span recorded under ``torch.profiler`` agrees with its twin in the
+exported trace."""
 
 import collections
 import gc
@@ -16,11 +17,13 @@ import torch
 
 from gunrock_tpu_torch.algorithms import bfs, sssp
 from gunrock_tpu_torch.experimental import async_sweep
+from gunrock_tpu_torch.framework import level_graphs
 from gunrock_tpu_torch.graph.reorder import degree_sort
 from gunrock_tpu_torch.io.generators import rmat_graph
 from gunrock_tpu_torch.ops.kernels import _build
 from gunrock_tpu_torch.ops.kernels import async_sweep as async_kernels
 from gunrock_tpu_torch.ops.kernels.layout import pull_layout
+from gunrock_tpu_torch.ops.kernels.semiring import _BIG
 from gunrock_tpu_torch.utils import profiler, timer
 from gunrock_tpu_torch.utils.limits import UNREACHED
 
@@ -171,6 +174,24 @@ def test_one_query_id_a_search_and_levels_match_depth(graph, search, s):
         assert push and pull
     pred = [x for x in spans if x.name == f"{search}.predecessors"]
     assert len(pred) == 1 and spans[pred[0].parent].name == f"{search}.run"
+
+
+@pytest.mark.parametrize("s", SOURCES)
+@pytest.mark.parametrize("search", ["bfs", "sssp"])
+def test_cpu_levels_run_eagerly(graph, monkeypatch, search, s):
+    """Off the card no level is captured or replayed: every level span
+    says ``graph="eager"``, the level graph counters stay at zero and the
+    layouts hold no level graphs."""
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
+    spans, depth, _ = _recorded(graph, search, s)
+    levels = [x for x in spans if x.name == LEVEL_SPAN[search]]
+    assert len(levels) == depth
+    assert {x.attrs["graph"] for x in levels} == {"eager"}
+    assert _build.LAUNCHES["level_graph_capture"] == 0
+    assert _build.LAUNCHES["level_graph_replay"] == 0
+    for layout in (pull_layout(graph, unit=True),
+                   pull_layout(graph, pad_value=_BIG)):
+        assert id(layout) not in level_graphs.TABLES
 
 
 @pytest.mark.parametrize("s", SOURCES)
