@@ -10,11 +10,10 @@ run the level-synchronous :func:`bfs_step` in plain tensor ops through
 ``BfsProblem``/``BfsEnactor``, the reference's enactor pattern, as the
 JAX package does; :func:`bfs_kernel` is the same search as a bare loop.
 
-The JAX package runs each search as one compiled ``while_loop``; here the
-loop is Python, and each level reads one two-element tensor back to the
-host (the frontier's out-edge sum and size), which both picks push or
-pull and ends the loop. On the card a level of :func:`bfs_kernel_do` is
-one replayed CUDA graph (``framework/level_graphs.py``).
+The JAX package runs each search as one compiled ``while_loop``; here
+:func:`bfs_kernel_do` runs the Python level loop it shares with DO-SSSP
+(``framework/level_graphs.py``): one host read a level, which picks the
+direction and ends the loop, and on the card one replayed CUDA graph.
 
 Spans (``utils/profiler.py``): ``bfs.run`` a call of :func:`run`, with
 ``bfs.search`` (the timed search) and ``bfs.predecessors`` inside it; one
@@ -36,7 +35,7 @@ import torch
 
 from gunrock_tpu_torch.device import DEFAULT
 from gunrock_tpu_torch.framework.enactor import Enactor
-from gunrock_tpu_torch.framework.level_graphs import Levels, level_graphs
+from gunrock_tpu_torch.framework.level_graphs import level_graphs, run_levels
 from gunrock_tpu_torch.framework.problem import Problem
 from gunrock_tpu_torch.graph import Graph
 from gunrock_tpu_torch.ops.configs import (
@@ -141,15 +140,21 @@ def bfs_push_step(graph: Graph, front_mask, distances, iteration,
         return new_mask, distances
 
 
-def bfs_push_step_plain(graph: Graph, front_mask, distances, iteration):
-    """Plain PyTorch version of :func:`bfs_push_step` (same in-place
-    update of ``distances``; ``iteration`` an int or a 0-d tensor)."""
+def _out_edges(graph: Graph, front_mask):
+    """(queue, out-degrees, out-edge ids) of the frontier: its vertices
+    ascending, and their out-edges in CSR order, queue item by item."""
     q = torch.nonzero(front_mask).flatten()
     starts = graph.row_offsets[q].long()
     degs = graph.row_offsets[q + 1].long() - starts
     first = torch.cumsum(degs, 0) - degs  # queue item -> first slot
     slot = torch.arange(int(degs.sum()), device=q.device)
-    e = torch.repeat_interleave(starts - first, degs) + slot
+    return q, degs, torch.repeat_interleave(starts - first, degs) + slot
+
+
+def bfs_push_step_plain(graph: Graph, front_mask, distances, iteration):
+    """Plain PyTorch version of :func:`bfs_push_step` (same in-place
+    update of ``distances``; ``iteration`` an int or a 0-d tensor)."""
+    _, _, e = _out_edges(graph, front_mask)
     nbr = graph.col_indices[e].long()
     tgt = nbr[distances[nbr] == UNREACHED]
     distances[tgt] = int(iteration) + 1
@@ -190,48 +195,26 @@ def bfs_kernel_do(
     ``layout``, each level after a direction's first is a replayed CUDA
     graph (``framework/level_graphs.py``). Returns (distances int32[V],
     depth)."""
-    V, E = graph.n_vertices, graph.n_edges
-    dev = graph.device
-    max_it = V if max_iterations is None else max_iterations
+    max_it = graph.n_vertices if max_iterations is None else max_iterations
     if edge_budget is None:
         # the push step's cost tracks its frontier, the pull's the graph:
         # E/64 keeps push well under one pull; a hub-first order makes the
         # masked pull cheap enough that E/512 wins (the JAX package's
         # measured tuning, kept until the card's own is measured)
         div = 512 if graph.properties.hub_ordered else 64
-        edge_budget = max(4096, E // div)
-    dist = torch.full((V,), UNREACHED, dtype=torch.int32, device=dev)
-    dist[single_source] = 0
-    front = torch.zeros(V, dtype=torch.bool, device=dev)
-    front[single_source] = True
-    entry = level_graphs("bfs", graph, layout, layout_dense, torch.int32)
-    levels = Levels("bfs", graph, entry, front, dist, 0)
-    del front, dist  # the levels own the state
+        edge_budget = max(4096, graph.n_edges // div)
+    levels = level_graphs("bfs", graph, layout, layout_dense, torch.int32)
+    levels.start(single_source, UNREACHED)
     steps = {
         "push": lambda f, d, i: bfs_push_step(graph, f, d, i, edge_budget),
-        "pull": lambda f, d, i: _pull(layout, f, d, i),
-        "pull_dense": lambda f, d, i: _pull(layout_dense, f, d, i),
         "step": lambda f, d, i: bfs_step(graph, f, d, None, i)[:2],
     }
-    it = 0
-    while it < max_it:
-        # the level's one host read: out-edge sum and size of the frontier
-        out_edges, n_front = levels.read()
-        if n_front == 0:
-            break
-        if out_edges < edge_budget and n_front < edge_budget:
-            direction = "push"
-        elif layout_dense is not None and out_edges >= E // 2:
-            direction = "pull_dense"
-        elif layout is not None:
-            direction = "pull"
-        else:
-            direction = "step"
-        with annotate("bfs.level", level=it, direction=direction,
-                      n_front=n_front, out_edges=out_edges) as span:
-            span.set(graph=levels.step(direction, it, steps[direction]))
-        it += 1
-    return levels.distances(), it
+    if layout is not None:
+        steps["pull"] = lambda f, d, i: _pull(layout, f, d, i)
+    if layout_dense is not None:
+        steps["pull_dense"] = lambda f, d, i: _pull(layout_dense, f, d, i)
+    depth = run_levels(graph, levels, steps, 0, max_it, edge_budget)
+    return levels.dist.clone(), depth
 
 
 def msbfs_kernel(graph: Graph, sources, pull_layout=None,

@@ -12,11 +12,10 @@ iteration through the dense min_plus pass; :func:`sssp_kernel_delta` is
 the bucketed (delta-stepping) variant; :func:`sssp_kernel` and the
 enactor run the plain-tensor relaxation :func:`sssp_step`.
 
-The JAX package runs each search as one compiled ``while_loop``; here the
-loop is Python and each iteration reads one small tensor back to the host,
-which both picks push or pull and ends the loop; on the card an iteration
-of :func:`sssp_kernel_do` is one replayed CUDA graph
-(``framework/level_graphs.py``). Predecessors come from one post-pass,
+The JAX package runs each search as one compiled ``while_loop``; here
+:func:`sssp_kernel_do` runs the Python level loop it shares with DO-BFS
+(``framework/level_graphs.py``): one host read an iteration, and on the
+card one replayed CUDA graph. Predecessors come from one post-pass,
 :func:`recover_predecessors`.
 
 Spans (``utils/profiler.py``): ``sssp.run`` a call of :func:`run`, with
@@ -36,9 +35,10 @@ import dataclasses
 
 import torch
 
+from gunrock_tpu_torch.algorithms.bfs import _out_edges
 from gunrock_tpu_torch.device import DEFAULT
 from gunrock_tpu_torch.framework import Enactor, Problem
-from gunrock_tpu_torch.framework.level_graphs import Levels, level_graphs
+from gunrock_tpu_torch.framework.level_graphs import level_graphs, run_levels
 from gunrock_tpu_torch.graph import Graph
 from gunrock_tpu_torch.ops.configs import (
     AdvanceDirection,
@@ -154,12 +154,7 @@ def sssp_push_step(graph: Graph, front_mask, distances, edge_budget: int):
 
 def sssp_push_step_plain(graph: Graph, front_mask, distances):
     """Plain PyTorch version of :func:`sssp_push_step`."""
-    q = torch.nonzero(front_mask).flatten()
-    starts = graph.row_offsets[q].long()
-    degs = graph.row_offsets[q + 1].long() - starts
-    first = torch.cumsum(degs, 0) - degs  # queue item -> first slot
-    slot = torch.arange(int(degs.sum()), device=q.device)
-    e = torch.repeat_interleave(starts - first, degs) + slot
+    q, degs, e = _out_edges(graph, front_mask)
     cand = torch.repeat_interleave(distances[q], degs) + graph.values[e]
     new_dist = distances.clone().scatter_reduce_(
         0, graph.col_indices[e].long(), cand, "amin")
@@ -199,50 +194,34 @@ def sssp_kernel_do(
     frontier, distances) continues an earlier call, ``stop`` ends the loop
     at that iteration count (in place of ``max_iterations``), and
     ``return_state`` returns the (iteration, frontier, distances) state."""
-    V, E = graph.n_vertices, graph.n_edges
-    max_it = V if max_iterations is None else max_iterations
+    max_it = graph.n_vertices if max_iterations is None else max_iterations
     if edge_budget is None:
         # E/128 (not BFS's E/64): a weighted search revisits vertices, so
         # pushing a larger share re-relaxes more stale edges; hub-ordered
         # graphs E/192 (the JAX package's measured tuning, kept until the
         # card's own is measured)
         div = 192 if graph.properties.hub_ordered else 128
-        edge_budget = max(4096, E // div)
+        edge_budget = max(4096, graph.n_edges // div)
+    levels = level_graphs("sssp", graph, layout, layout_dense, torch.float32)
     if init_state is None:
-        dist, front = _start(graph, single_source)
         it = 0
+        levels.start(single_source, INF)
     else:
-        it, front, dist = init_state
-    entry = level_graphs("sssp", graph, layout, layout_dense, torch.float32)
-    levels = Levels("sssp", graph, entry, front, dist, it)
-    del front, dist  # the levels own the state
+        it = init_state[0]
+        levels.resume(*init_state)
     steps = {
         "push": lambda f, d, _: sssp_push_step(graph, f, d, edge_budget),
         "step": lambda f, d, _: sssp_step(graph, f, d),
-        "pull": lambda f, d, _: _pull(layout, f, d),
-        "pull_dense": lambda f, d, _: _pull(layout_dense, f, d),
     }
-    limit = max_it if stop is None else stop
-    while it < limit:
-        # the iteration's one host read: out-edge sum and size of the frontier
-        out_edges, n_front = levels.read()
-        if n_front == 0:
-            break
-        if out_edges < edge_budget and n_front < edge_budget:
-            direction = "push"
-        elif layout is None:
-            direction = "step"
-        elif layout_dense is not None and out_edges >= E // 2:
-            direction = "pull_dense"
-        else:
-            direction = "pull"
-        with annotate("sssp.level", level=it, direction=direction,
-                      n_front=n_front, out_edges=out_edges) as span:
-            span.set(graph=levels.step(direction, it, steps[direction]))
-        it += 1
+    if layout is not None:
+        steps["pull"] = lambda f, d, _: _pull(layout, f, d)
+        if layout_dense is not None:
+            steps["pull_dense"] = lambda f, d, _: _pull(layout_dense, f, d)
+    it = run_levels(graph, levels, steps, it,
+                    max_it if stop is None else stop, edge_budget)
     if return_state:
-        return it, levels.frontier(), levels.distances()
-    return levels.distances(), it
+        return it, levels.front.clone(), levels.dist.clone()
+    return levels.dist.clone(), it
 
 
 def sssp_do_slabbed(
@@ -258,17 +237,15 @@ def sssp_do_slabbed(
     round already reads the device once, so the slabs only mirror that
     API, with distances equal to :func:`sssp_kernel_do`'s. Returns
     (distances, depth)."""
-    V = graph.n_vertices
-    dist, front = _start(graph, single_source)
-    state = (0, front, dist)
+    state, stop = None, 0
     while True:
+        stop += rounds_per_dispatch
         state = sssp_kernel_do(graph, single_source, layout=layout,
-                               init_state=state,
-                               stop=state[0] + rounds_per_dispatch,
+                               init_state=state, stop=stop,
                                return_state=True)
-        if not host_read("sssp", state[1].any) or state[0] >= V:
-            break
-    return state[2], state[0]
+        # a slab ends before its stop only when the frontier empties
+        if state[0] < stop or state[0] >= graph.n_vertices:
+            return state[2], state[0]
 
 
 def sssp_kernel_delta(

@@ -44,31 +44,44 @@ def graphs():
         {k: np.asarray(getattr(jg, k)) for k in ARRAYS}, jg.n_vertices,
         GraphProperties(**dataclasses.asdict(jg.properties)), device="cpu")
     jl = j_pull_layout(jg, window=128, chunk=128, unit=True)
-    tl = BucketedEdges.from_arrays(
+    return jg, tg, jl, _to_torch_layout(jl)
+
+
+def _to_torch_layout(jl):
+    return BucketedEdges.from_arrays(
         {k: np.asarray(getattr(jl, k)) for k in DATA_FIELDS},
         **{k: getattr(jl, k) for k in META_FIELDS}, device="cpu")
-    return jg, tg, jl, tl
 
 
-@pytest.mark.parametrize("mode", ["all_pull", "all_push", "mixed"])
+@pytest.mark.parametrize("mode", ["all_pull", "all_push", "mixed",
+                                  "mixed_dense"])
 def test_bfs_kernel_do_matches_jax(graphs, mode, monkeypatch):
+    """``mixed_dense`` also passes ``layout_dense`` (W=256/C=256), which
+    takes the levels whose frontier covers half the edges."""
     jg, tg, jl, tl = graphs
     budget = {"all_pull": 1, "all_push": tg.n_edges + tg.n_vertices + 1,
-              "mixed": tg.n_edges // 40}[mode]
+              "mixed": tg.n_edges // 40, "mixed_dense": tg.n_edges // 40}[mode]
+    jl_dense = tl_dense = None
+    if mode == "mixed_dense":
+        jl_dense = j_pull_layout(jg, window=256, chunk=256, unit=True)
+        tl_dense = _to_torch_layout(jl_dense)
     taken = []
     push, pull = bfs.bfs_push_step, bfs._pull
     monkeypatch.setattr(bfs, "bfs_push_step",
                         lambda *a: taken.append("push") or push(*a))
-    monkeypatch.setattr(bfs, "_pull", lambda *a: taken.append("pull") or pull(*a))
+    monkeypatch.setattr(bfs, "_pull", lambda lay, *a: taken.append(
+        "pull" if lay is tl else "pull_dense") or pull(lay, *a))
     for src in (0, 100, 511):
         d_j, it_j = jbfs.bfs_kernel_do(jg, src, edge_budget=budget, layout=jl,
-                                       interpret=True)
-        d_t, it_t = bfs.bfs_kernel_do(tg, src, edge_budget=budget, layout=tl)
+                                       interpret=True, layout_dense=jl_dense)
+        d_t, it_t = bfs.bfs_kernel_do(tg, src, edge_budget=budget, layout=tl,
+                                      layout_dense=tl_dense)
         np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
         assert it_t == int(it_j)
     # budget 1 never pushes: that needs a frontier of size < 1
     assert set(taken) == {"all_pull": {"pull"}, "all_push": {"push"},
-                          "mixed": {"pull", "push"}}[mode]
+                          "mixed": {"pull", "push"},
+                          "mixed_dense": {"pull", "push", "pull_dense"}}[mode]
 
 
 @pytest.mark.parametrize("max_iterations", [None, 2])
