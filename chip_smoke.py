@@ -67,6 +67,12 @@ Phases, each raising on failure:
    turnaround repeats a block), blocks of fewer edges than a warp tile, a
    hub whose in-edges span more warp tiles than the grid has warps,
    edgeless, with a sweep cap of 0 and 1 for both kernels.
+   The multi-source BFS kernels (``msbfs_start``, ``msbfs_pull``) bit for
+   bit against their plain versions, the start and every level of three
+   batches (K=32 from the 32 highest-degree vertices and from random
+   sources with one repeated, K=40 from random sources) in the normal
+   and the checked build, then ``msbfs_pull`` timed on the level that
+   needs the most slots.
    Then the edge shapes again, 20 times, on the range-checking build.
 3. main paths, each with launch counts reset just before and read just
    after; every kernel of the path must have launched:
@@ -1606,6 +1612,7 @@ def check_kernels(torch, graph, layouts):
     print(f"push step input: {q.numel()} frontier vertices, {n_edges_q} "
           f"out-edges, {n_new} new")
     rows.update(predecessor_rows(torch, graph, layouts, timed))
+    rows.update(msbfs_rows(torch, graph, timed))
     rows.update(family_kernel_rows(torch, graph, layouts, timed))
     frontier_rows, frontier_errs = frontier_kernel_rows(torch, graph, layouts,
                                                        timed)
@@ -1710,6 +1717,96 @@ def predecessor_rows(torch, graph, layouts, timed) -> dict:
                              P.predecessors_plain(graph, d, kind)),
             bound_ms=b, bound_by=by, library_ms=None)
     return rows
+
+
+def msbfs_rows(torch, graph, timed) -> dict:
+    """The multi-source BFS kernels at the main path's shape. The start
+    and every level of three batches held bit for bit (``torch.equal`` on
+    every tensor of the state) against the plain versions, in the normal
+    and the checked build; then ``msbfs_pull`` timed on the level of the
+    top-degree batch that needs the most slots (each call restores the
+    state's words, a copy timed apart and taken off) beside its plain
+    version and its byte bound. Adds the timed call to ``timed``."""
+    import numpy as np
+
+    from gunrock_tpu_torch.ops.kernels import _build
+    from gunrock_tpu_torch.ops.kernels import msbfs as M
+    from gunrock_tpu_torch.probes.pull import msbfs_level_bytes
+
+    dev, V = graph.device, graph.n_vertices
+    deg = graph.out_degrees().cpu().numpy()
+    rng = np.random.default_rng(SEED + 6)
+    rand = rng.choice(np.flatnonzero(deg > 0), 40)
+    rand[1] = rand[0]
+    batches = {"top-degree K=32": np.argsort(-deg, kind="stable")[:K],
+               "random K=32": rand[:32], "random K=40": rand}
+    heaviest = None  # (slots, level, state before it) of the top batch
+    for checked in (False, True):
+        _build.use_checked(checked)
+        try:
+            for what, batch in batches.items():
+                src = torch.as_tensor(batch, device=dev).long()
+                got, want = (M.MsbfsState.empty(V, len(batch), dev)
+                             for _ in range(2))
+                M.msbfs_start(graph, src, got)
+                M.msbfs_start_plain(graph, src, want)
+                level = 0
+                while True:
+                    torch.cuda.synchronize()
+                    for name, t in got.tensors().items():
+                        if not torch.equal(t, getattr(want, name)):
+                            raise AssertionError(
+                                f"msbfs {what}, level {level}"
+                                f"{' (checked build)' if checked else ''}: "
+                                f"{name} differs from the plain pass's")
+                    c = want.counts.tolist()
+                    if not c[level % 2]:
+                        break
+                    before = M.MsbfsState(**{
+                        k: t.clone() for k, t in got.tensors().items()})
+                    M.msbfs_pull(graph, got, level)
+                    M.msbfs_pull_plain(graph, want, level)
+                    slots = want.counts[2].item() - c[2]
+                    if (not checked and what.startswith("top")
+                            and (heaviest is None or slots > heaviest[0])):
+                        heaviest = (slots, level, before)
+                    level += 1
+        finally:
+            _build.use_checked(False)
+    print(f"msbfs: {len(batches)} batches bit for bit, every level, in both "
+          "builds")
+
+    slots, level, before = heaviest
+    st = M.MsbfsState(**{k: t.clone() for k, t in before.tensors().items()})
+    M.msbfs_pull(graph, st, level)
+    gained = int((st.dist == level + 1).sum())
+    spare = torch.empty_like(before.front)  # each call's next, written whole
+
+    def restore():  # the words the level reads and writes, as before it
+        for name in ("seen", "aux", "counts"):
+            getattr(st, name).copy_(getattr(before, name))
+        st.front, st.next = before.front, spare
+
+    launched = kernels_of_one_call(lambda: (restore(), M.msbfs_pull(
+        graph, st, level)))
+    if sum(n for k, n in launched.items() if "msbfs" in k) != 1:
+        raise AssertionError(f"msbfs_pull: one call ran {launched}, not one "
+                             "msbfs kernel")
+    copy_ms = time_ms(torch, restore)
+    b, by = bound_ms(msbfs_level_bytes(graph, M.n_words(K), slots, gained))
+    print(f"msbfs_pull timed input: level {level} of the top-degree batch, "
+          f"{slots} of {graph.n_edges} slots, {gained} distances written")
+    return {"msbfs_pull": dict(
+        route="cuda", source="gunrock_tpu_torch/csrc/msbfs.cu",
+        replaces="none (gunrock_tpu/algorithms/bfs.py:248 msbfs_kernel "
+                 "calls B4, gunrock_tpu/ops/pallas/spmm.py:85)",
+        max_abs_err=0.0,
+        ms=time_ms(torch, timed.setdefault(
+            "msbfs_pull", lambda: (restore(), M.msbfs_pull(
+                graph, st, level)))) - copy_ms,
+        plain_ms=time_ms(torch, lambda: (restore(), M.msbfs_pull_plain(
+            graph, st, level))) - copy_ms,
+        bound_ms=b, bound_by=by, library_ms=None)}
 
 
 def family_kernel_rows(torch, graph, layouts, timed) -> dict:
@@ -4431,7 +4528,8 @@ def main() -> int:
 
     # 3. the main paths, launches counted from zero before each
     bfs_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",
-                   "bucketed_spmm", "bfs_push_step", "bfs_predecessors")
+                   "bfs_push_step", "bfs_predecessors", "msbfs_start",
+                   "msbfs_pull")
     family_kernels = ("chunk_activity", "bucketed_semiring_spmv_sparse",
                       "sssp_push_step", "bucketed_semiring_spmv",
                       "hits_fused_pass", "bucketed_spmm", "sssp_predecessors")

@@ -5,10 +5,11 @@ direction-optimizing BFS (:func:`bfs_kernel_do`): per level it takes the
 push step (:func:`bfs_push_step`, a CUDA kernel) for small frontiers and
 the frontier-sparse semiring pull (``ops/kernels/semiring.py``) over the
 unit pull layout otherwise. :func:`msbfs_kernel` runs K searches at once
-through the bucketed SpMM. The other options (``Options()``, FORWARD)
-run the level-synchronous :func:`bfs_step` in plain tensor ops through
-``BfsProblem``/``BfsEnactor``, the reference's enactor pattern, as the
-JAX package does; :func:`bfs_kernel` is the same search as a bare loop.
+as bits, one CSC-scan kernel a level (``ops/kernels/msbfs.py``). The
+other options (``Options()``, FORWARD) run the level-synchronous
+:func:`bfs_step` in plain tensor ops through ``BfsProblem``/``BfsEnactor``,
+the reference's enactor pattern, as the JAX package does;
+:func:`bfs_kernel` is the same search as a bare loop.
 
 The JAX package runs each search as one compiled ``while_loop``; here
 :func:`bfs_kernel_do` runs the Python level loop it shares with DO-SSSP
@@ -19,9 +20,12 @@ Spans (``utils/profiler.py``): ``bfs.run`` a call of :func:`run`, with
 ``bfs.search`` (the timed search) and ``bfs.predecessors`` inside it; one
 ``bfs.level`` a level of :func:`bfs_kernel_do` (its index, direction, the
 frontier's size and out-edges, and ``graph``: ``eager``, ``capture`` or
-``replay``) and ``bfs.sync`` for each level read;
-``msbfs`` a call of :func:`msbfs_kernel`, with ``msbfs.level`` and
-``msbfs.sync``; ``kernel.bfs_push_step`` around the push step and
+``replay``) and ``bfs.sync`` for each level read; ``msbfs`` a call of
+:func:`msbfs_kernel` (``sources``; at its end ``slots``, the CSC slots its
+levels read, and ``scan_share``, those over depth x slots x words, 1.0
+where no scan stops early), with one ``msbfs.level`` a level (``level``,
+``direction``, ``n_front``: the vertices entering it) and ``msbfs.sync``
+for each read; ``kernel.bfs_push_step`` around the push step and
 ``kernel.bfs_predecessors`` inside ``bfs.predecessors``.
 """
 
@@ -30,7 +34,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
-import numpy as np
 import torch
 
 from gunrock_tpu_torch.device import DEFAULT
@@ -45,10 +48,15 @@ from gunrock_tpu_torch.ops.configs import (
     default_options,
 )
 from gunrock_tpu_torch.ops.kernels import _build
-from gunrock_tpu_torch.ops.kernels.layout import build_auto_layout, pull_layout
+from gunrock_tpu_torch.ops.kernels.layout import pull_layout
+from gunrock_tpu_torch.ops.kernels.msbfs import (
+    MsbfsState,
+    msbfs_pull,
+    msbfs_start,
+    n_words,
+)
 from gunrock_tpu_torch.ops.kernels.predecessors import bfs_predecessors
 from gunrock_tpu_torch.ops.kernels.semiring import bucketed_semiring_spmv_sparse
-from gunrock_tpu_torch.ops.kernels.spmm import bucketed_spmm
 from gunrock_tpu_torch.utils.limits import UNREACHED
 from gunrock_tpu_torch.utils.profiler import annotate, host_read
 from gunrock_tpu_torch.utils.timer import timed
@@ -219,34 +227,40 @@ def bfs_kernel_do(
 
 def msbfs_kernel(graph: Graph, sources, pull_layout=None,
                  max_iterations: int | None = None):
-    """Multi-source BFS: K searches share every SpMM pass over the unit
-    pull layout. Returns (distances int32[V, K], depth)."""
+    """Multi-source BFS, bit-parallel: search k is bit ``k % 32`` of word
+    ``k // 32`` of each vertex's frontier and seen words, and a level is
+    one pass, :func:`msbfs_pull` (on the card one launch of
+    ``csrc/msbfs.cu``), that ORs the frontier words of each vertex's
+    in-neighbours over its CSC run, stopping once they cover the searches
+    that have not reached it. One host read a level: the next frontier's
+    vertices and the slots read so far. ``pull_layout`` is taken and not
+    read: the CSC holds the same in-edges. Returns (distances int32[V, K],
+    depth)."""
+    del pull_layout
     V = graph.n_vertices
     dev = graph.device
     max_it = V if max_iterations is None else max_iterations
-    src = torch.as_tensor(sources, device=dev).long()
+    src = torch.as_tensor(sources, device=dev).long().contiguous()
     K = src.shape[0]
-    with annotate("msbfs", sources=K):
-        if pull_layout is None:
-            h = graph.host
-            pull_layout = build_auto_layout(
-                h["col_indices"], h["edge_src"],
-                np.ones(graph.n_edges, np.float32), V, device=dev,
-            )
-        cols = torch.arange(K, device=dev)
-        dist = torch.full((V, K), UNREACHED, dtype=torch.int32, device=dev)
-        dist[src, cols] = 0
-        front = torch.zeros((V, K), dtype=torch.float32, device=dev)
-        front[src, cols] = 1.0
+    with annotate("msbfs", sources=K) as query:
+        state = MsbfsState.empty(V, K, dev)
+        msbfs_start(graph, src, state)
+
+        def read(level):  # (vertices entering `level`, slots read so far)
+            c = host_read("msbfs", state.counts)
+            return c[level % 2], c[2]
+
         it = 0
-        while it < max_it and host_read("msbfs", front.any):
-            with annotate("msbfs.level", level=it, direction="pull"):
-                reached = bucketed_spmm(pull_layout, front, exact=True) > 0.5
-                new = reached & (dist == UNREACHED)
-                dist.masked_fill_(new, it + 1)
-                front = new.to(torch.float32)
+        n_front, slots = read(it)
+        while it < max_it and n_front:
+            with annotate("msbfs.level", level=it, direction="pull",
+                          n_front=n_front):
+                msbfs_pull(graph, state, it)
             it += 1
-    return dist, it
+            n_front, slots = read(it)
+        full = it * graph.n_edges * n_words(K)  # every slot, every word
+        query.set(slots=slots, scan_share=slots / full if full else 0.0)
+    return state.dist, it
 
 
 def bfs_kernel(graph: Graph, single_source: int,

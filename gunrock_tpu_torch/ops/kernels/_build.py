@@ -36,7 +36,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("chunkplan", "semiring", "spmm", "bfs_push", "hits_fused",
            "sssp_push", "mst_min", "geo_step", "banded", "probes",
-           "async_sweep", "predecessors")
+           "async_sweep", "predecessors", "msbfs")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

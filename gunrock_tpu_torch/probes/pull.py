@@ -189,10 +189,24 @@ On a tree without a span table, a column span table, B5's K tile or B4's
 K tile and walk, those lines are skipped, so the same file times an
 earlier tree's kernels.
 
+``--msbfs`` prints instead (no other case) one line, ``msbfs_level``, for
+each level of a K=32 multi-source BFS (``msbfs_pull``) on an undirected
+R-MAT graph of ``--scale`` (edge factor 16, seed 1, degree-sorted; 20 for
+the benchmark's shape) from 32 seeded random sources of nonzero degree:
+``n_front`` (the vertices entering the level), ``slots`` (the CSC slots
+its scans needed), ``scan_share`` (those over every slot), ``gained``
+(the distances it wrote), ``device_ms`` (the kernel's device time a call,
+the level replayed on its own inputs), ``replay_device_ms`` (with the
+copies of ``seen`` and ``aux`` that each replay restores) and
+``bound_ms`` (:func:`msbfs_level_bytes` over the card's memory rate);
+then one line, ``msbfs_query``: the depth, the query's slots and
+``scan_share``, its ``ms`` (CUDA events) and ``device_ms``, and the
+levels' device times summed.
+
 Usage: python -m gunrock_tpu_torch.probes.pull [--scale 18] [--num_runs 20]
        [--sweep 4,8,16,32] [--k_tiles 4,8,16] [--greedy] [--b4_b6]
        [--luby] [--b2_b9] [--geo] [--sssp_push] [--bfs_push] [--mst]
-       [--async] [--banded] [--predecessors] [--device cuda]
+       [--async] [--banded] [--predecessors] [--msbfs] [--device cuda]
 """
 
 from __future__ import annotations
@@ -1097,6 +1111,83 @@ def predecessor_lines(scale: int, n: int, device) -> list:
     return rows
 
 
+def msbfs_level_bytes(graph, n_words: int, slots: int, gained: int) -> int:
+    """Bytes one level of ``msbfs_pull`` must move: the offsets, the
+    front, seen and next words over V (front once: its gathers hit L2),
+    4 B a slot its scans need, and 4 B a distance it writes (``gained``
+    searches reaching a vertex). The frontier bitmaps' V / 4 bytes are
+    left out."""
+    V = graph.n_vertices
+    return 4 * (V + 1) + 12 * V * n_words + 4 * slots + 4 * gained
+
+
+def msbfs_lines(scale: int, n: int, device) -> list:
+    """The ``msbfs_level`` lines and the ``msbfs_query`` line (see the
+    module docstring)."""
+    from gunrock_tpu_torch.algorithms import bfs
+    from gunrock_tpu_torch.graph.reorder import degree_sort
+    from gunrock_tpu_torch.io.generators import rmat_graph
+    from gunrock_tpu_torch.ops.kernels import msbfs as M
+    from gunrock_tpu_torch.utils.roofline import bound_ms
+
+    graph, _ = degree_sort(rmat_graph(scale, 16, seed=1, undirected=True,
+                                      device=device))
+    dev, V, E, K = graph.device, graph.n_vertices, graph.n_edges, 32
+    live = torch.nonzero(graph.out_degrees().cpu() > 0).flatten()
+    gen = torch.Generator().manual_seed(1)
+    src = live[torch.randperm(live.numel(), generator=gen)[:K]].to(dev)
+    nw = M.n_words(K)
+    st = M.MsbfsState.empty(V, K, dev)
+    M.msbfs_start(graph, src, st)
+    label = device_label(dev)
+    rows, level, c = [], 0, st.counts.tolist()
+    while c[level % 2]:
+        n_front, before = c[level % 2], c[2]
+        saved = {k: t.clone() for k, t in st.tensors().items()}
+        M.msbfs_pull(graph, st, level)
+        c = st.counts.tolist()
+        slots = c[2] - before
+        gained = int((st.dist == level + 1).sum())
+        # replays on the level's own inputs, in a state of their own: the
+        # distances they write are the same again
+        again = M.MsbfsState(**saved)
+        seen0, aux0 = again.seen.clone(), again.aux.clone()
+        front, spare = again.front, again.next
+
+        def replay(again=again, seen0=seen0, aux0=aux0, front=front,
+                   spare=spare, level=level):
+            again.seen.copy_(seen0)
+            again.aux.copy_(aux0)
+            again.front, again.next = front, spare
+            M.msbfs_pull(graph, again, level)
+
+        row = {"probe": "pull", "case": "msbfs_level", "scale": scale,
+               "vertices": V, "slots_total": E, "level": level,
+               "n_front": n_front, "slots": slots, "scan_share": slots / E,
+               "gained": gained}
+        busy, kernels = _profile(replay, n, dev)
+        row["device_ms"] = (sum(us for k, us in kernels.items()
+                                if "msbfs_pull" in k) / 1e3
+                            if isinstance(kernels, dict) else kernels)
+        row["replay_device_ms"] = busy  # with the copies of seen and aux
+        if dev.type == "cuda":
+            row["bound_ms"] = bound_ms(msbfs_level_bytes(
+                graph, nw, slots, gained), 0, device=dev)[0]
+        row["device"] = label
+        rows.append(row)
+        level += 1
+    query = {"probe": "pull", "case": "msbfs_query", "scale": scale,
+             "sources": K, "depth": level, "slots": c[2],
+             "scan_share": c[2] / (level * E * nw),
+             "ms": time_ms(dev, lambda: bfs.msbfs_kernel(graph, src), n),
+             "device_ms": _profile(lambda: bfs.msbfs_kernel(graph, src), n,
+                                   dev)[0],
+             "level_device_ms_sum": (sum(r["device_ms"] for r in rows)
+                                     if dev.type == "cuda" else None),
+             "device": label}
+    return rows + [query]
+
+
 def main(argv=None) -> int:
     from gunrock_tpu_torch.probes.v5_floor import probe_graph
 
@@ -1137,8 +1228,15 @@ def main(argv=None) -> int:
     p.add_argument("--predecessors", action="store_true",
                    help="time only the predecessor pass of BFS and SSSP "
                         "against its plain version")
+    p.add_argument("--msbfs", action="store_true",
+                   help="time only multi-source BFS's level kernel, level "
+                        "by level, at K=32")
     p.add_argument("--device", default="cuda")
     ns = p.parse_args(argv)
+    if ns.msbfs:
+        for row in msbfs_lines(ns.scale, ns.num_runs, ns.device):
+            print(json.dumps(row), flush=True)
+        return 0
     if ns.predecessors:
         for row in predecessor_lines(ns.scale, ns.num_runs, ns.device):
             print(json.dumps(row), flush=True)
